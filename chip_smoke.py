@@ -16,7 +16,16 @@ checks it, in phases:
   5. oracle sampler: x0_step_down with a perfect denoiser gives back the
      clean batch (Algorithm-2 telescoping; checks the fp32 degrade);
   6. the main path: prepare_start + sample, timed, with the kernel's launch
-     count checked.
+     count checked;
+  7. train-step parity: one fp32 optimizer step of a small UNet on the GPU
+     vs on the CPU (loss, gradients, front launches);
+  8. the training main path: ``Trainer.train()`` at full width (B=16,
+     accum 2, bf16 compute on fp32 masters, Adam, EMA), 10 timed optimizer
+     steps with the kernel's launch count checked, one step with a
+     checkpoint and the EMA sample grids, then a bitwise checkpoint round
+     trip;
+  9. the four Mosaic probe kernels of scripts/bisect_mosaic.py, through
+     their entry point, against their plain versions, with CUDA-event times.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero at once.  The line before the last is a JSON summary of the
@@ -29,18 +38,23 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from colddiff_torch.data import SyntheticDataset
 from colddiff_torch.diffusion import ColdDiffusion
 from colddiff_torch.models import UnetConvNext
 from colddiff_torch.models.layers import ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
+from colddiff_torch.ops import bisect_mosaic as probe_ops
 from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
 from colddiff_torch.sampling import prepare_start, sample
+from colddiff_torch.scripts import bisect_mosaic as probe_script
+from colddiff_torch.train import Trainer
 
 SEED = 0
 BATCH = 16
@@ -51,6 +65,11 @@ FRONT_FP32_ATOL = 1e-4  # summation order over 49 taps and C channels only
 FRONT_BF16_TOL = 2e-2  # one bf16 rounding of an LN output of magnitude <= ~4
 UNET_REL_L2 = 1e-3
 ORACLE_ATOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_L2 = 1e-3  # cuDNN vs oneDNN summation orders, as in phase 4
+TRAIN_STEPS = 10
+ACCUM = 2
+PROBE_ATOL = 1e-5  # fp32 summation order of the two sums
 
 
 def log(*parts) -> None:
@@ -208,6 +227,125 @@ def main_path(model: UnetConvNext, device, batch: int, size: int, timesteps: int
     return out, seconds, launches
 
 
+def blur_diffusion(size: int, timesteps: int, device) -> ColdDiffusion:
+    op = get_operator("blur", image_size=size, timesteps=timesteps,
+                      blur_routine="Exponential_reflect", kernel_size=15,
+                      kernel_std=0.01, device=device)
+    return ColdDiffusion(op=op, image_size=size, sampling_routine="x0_step_down")
+
+
+def train_step_parity(device, folder: str):
+    """Phase 7: one fp32 optimizer step (B=2, accum 2, given t) of a small
+    UNet on the GPU and on the CPU, from the same weights and batch.
+    Returns (loss rel err, worst grad rel L2, front launches, fronts)."""
+    cfg, size, steps = dict(dim=16, dim_mults=(1, 2)), 32, 20
+    _, fronts = record_fronts(seeded_unet(SEED, "cpu", **cfg),
+                              torch.zeros(1, size, size, 3), torch.tensor([1]))
+    t = torch.tensor([[0, 7], [13, 19]])
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        tr = Trainer(blur_diffusion(size, steps, dev), seeded_unet(SEED, dev, **cfg),
+                     SyntheticDataset(size, 3, length=8), train_batch_size=2,
+                     gradient_accumulate_every=ACCUM, results_folder=f"{folder}/{dev.type}",
+                     num_workers=1, seed=SEED, device=dev)
+        before = convnext_front.launches
+        loss = tr.train_step(tr._next_superbatch(), t=t.to(dev)).item()
+        runs[dev.type] = (loss, [p.grad.detach().cpu() for p in tr.model.parameters()],
+                          convnext_front.launches - before)
+    (loss_g, grads_g, launches), (loss_c, grads_c, _) = runs["cuda"], runs["cpu"]
+    worst = max(rel_l2(g, c) for g, c in zip(grads_g, grads_c))
+    return abs(loss_g - loss_c) / abs(loss_c), worst, launches, len(fronts)
+
+
+def train_main_path(device, folder: str):
+    """Phase 8: the Trainer at full width, bf16 compute on fp32 masters,
+    driven through ``Trainer.train(log_every=1)``: one warm-up step, then
+    TRAIN_STEPS timed steps (step 10 takes the EMA branch), then one step
+    whose checkpoint and EMA sample grids run (``save_and_sample_every``),
+    then a checkpoint round trip into a fresh Trainer.  Each step's loss and
+    time are read from the Trainer's own ``metrics.jsonl`` (the loader's
+    wait included).  Returns (losses, step seconds, front launches, peak
+    bytes, seconds of the snapshot step, whether the round trip is bitwise)."""
+    d = blur_diffusion(IMG, T, device)
+    last = TRAIN_STEPS + 2
+    kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, train_lr=2e-5,
+              ema_decay=0.995, step_start_ema=2000, update_ema_every=10,
+              save_and_sample_every=last, results_folder=folder, bf16=True,
+              num_workers=8, seed=SEED, device=device)
+    ds = SyntheticDataset(IMG, 3, length=64)
+    tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), ds, train_num_steps=1, **kw)
+    tr.train(log_every=1)  # warm-up: cuDNN and allocator set-up
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    convnext_front.launches = 0
+    tr.train_num_steps = 1 + TRAIN_STEPS
+    tr.train(log_every=1)
+    launches = convnext_front.launches
+    peak = torch.cuda.max_memory_allocated(device)
+
+    tr.train_num_steps = last
+    t0 = time.perf_counter()
+    tr.train(log_every=1)  # save, then snapshot(1): sampling with the EMA model
+    snap_s = time.perf_counter() - t0
+    for name in ("og", "xt", "direct_recons", "sample"):
+        if not (tr.results_folder / f"{name}-1.png").is_file():
+            raise AssertionError(f"snapshot wrote no {name}-1.png")
+    lines = [json.loads(x) for x in tr.metrics_path.read_text().splitlines()]
+    if [x["step"] for x in lines] != list(range(1, last + 1)):
+        raise AssertionError(f"metrics.jsonl steps {[x['step'] for x in lines]}")
+    timed = lines[1:1 + TRAIN_STEPS]
+    losses = [x["loss"] for x in timed]
+    step_s = [BATCH * ACCUM / x["images_per_sec"] for x in timed]
+
+    fresh = Trainer(d, seeded_unet(SEED + 1, device, **FLAGSHIP), ds,
+                    load_path=f"{folder}/model.pt", **kw)
+    a, b = tr.state(), fresh.state()
+    bitwise = (a["step"] == b["step"] == last
+               and all(torch.equal(a[k][n], b[k][n]) for k in ("model", "ema") for n in a[k])
+               and torch.equal(a["generator"], b["generator"])
+               and all(torch.equal(v, b["opt"]["state"][i][name])
+                       for i, st in a["opt"]["state"].items() for name, v in st.items()))
+    return losses, step_s, launches, peak, snap_s, bitwise
+
+
+def probe_kernels(device):
+    """Phase 9: the probe entry point's four kernels against their plain
+    versions; returns one row per probe."""
+    wrappers = (probe_ops.probe_roll, probe_ops.probe_roll_slice,
+                probe_ops.probe_masked_norm, probe_ops.probe_dyn_sublane)
+    for w in wrappers:
+        w.launches = 0
+    outs = probe_script.probes(device)
+    torch.cuda.synchronize(device)
+    launches = [w.launches for w in wrappers]
+    a = probe_script.inputs(device)
+    shift = a["x"].shape[-1] - probe_script.ROLL
+    calls = [
+        (lambda: probe_ops.probe_roll(a["x"], shift),
+         lambda: probe_ops.roll_plain(a["x"], shift), 0.0, "scripts/bisect_mosaic.py:37"),
+        (lambda: probe_ops.probe_roll_slice(a["x"], shift, probe_script.SPLIT),
+         lambda: probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT), 0.0,
+         "scripts/bisect_mosaic.py:42"),
+        (lambda: probe_ops.probe_masked_norm(a["xn"]),
+         lambda: probe_ops.masked_norm_plain(a["xn"]), PROBE_ATOL,
+         "scripts/bisect_mosaic.py:49"),
+        (lambda: probe_ops.probe_dyn_sublane(a["xd"]),
+         lambda: probe_ops.dyn_sublane_plain(a["xd"]), PROBE_ATOL,
+         "scripts/bisect_mosaic.py:64"),
+    ]
+    rows = []
+    for w, (name, got), n, (kernel, plain, tol, replaces) in zip(wrappers, outs, launches,
+                                                                 calls):
+        err = (got - plain()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"probe {name}: max err {err} > {tol}")
+        rows.append(dict(name=w.__name__, probe=name, launches=n, max_abs_err=err,
+                         ms=cuda_median_ms(kernel), plain_ms=cuda_median_ms(plain),
+                         replaces=replaces, sum=float(got.sum())))
+        log("  probe", json.dumps(rows[-1]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -291,17 +429,64 @@ def main() -> int:
         f"{BATCH / seconds:.3f} images/s, peak memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
 
+    del model16
+    with tempfile.TemporaryDirectory() as folder:
+        # 7. train-step parity, fp32, GPU vs CPU
+        loss_err, grad_err, step_launches, nfronts = train_step_parity(dev, folder + "/p7")
+        if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_REL_L2
+                and step_launches == nfronts * ACCUM):
+            raise AssertionError(f"train-step parity: loss rel err {loss_err}, grad rel "
+                                 f"L2 {grad_err}, launches {step_launches} != "
+                                 f"{nfronts} x {ACCUM}")
+        log(f"[7] train step fp32 cuda vs cpu: loss rel err {loss_err:.3e} "
+            f"(<= {TRAIN_LOSS_RTOL}), worst grad rel L2 {grad_err:.3e} "
+            f"(<= {TRAIN_GRAD_REL_L2}), front launches {step_launches} = "
+            f"{nfronts} fronts x {ACCUM}")
+
+        # 8. the training main path
+        losses, step_s, train_launches, train_peak, snap_s, bitwise = \
+            train_main_path(dev, folder + "/p8")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if train_launches != 17 * ACCUM * TRAIN_STEPS:
+        raise AssertionError(f"training launched the front kernel {train_launches} "
+                             f"times, expected {17 * ACCUM * TRAIN_STEPS}")
+    if not bitwise:
+        raise AssertionError("checkpoint round trip is not bitwise equal")
+    images = BATCH * ACCUM
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    log(f"[8] losses {losses}")
+    log(f"[8] Trainer.train() B={BATCH} x accum {ACCUM} {IMG}px bf16, {TRAIN_STEPS} "
+        f"steps, loader included: {step_ms:.3f} ms per optimizer step (median "
+        f"{1e3 * float(np.median(step_s)):.3f}), {images / (step_ms / 1e3):.3f} train "
+        f"images/s; peak memory {train_peak} bytes ({train_peak / 2**30:.2f} GiB); front "
+        f"launches {train_launches}; the step with save + EMA snapshot (T={T}) "
+        f"{snap_s:.3f} s; checkpoint round trip bitwise; card: {card}")
+
+    # 9. probes
+    probes = probe_kernels(dev)
+    log("[9] probes: " + ", ".join(f"{r['name']} max err {r['max_abs_err']:.3e} "
+                                    f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
+                                    for r in probes) + f"; card: {card}")
+
     level0 = next(r for r in rows if r["shape"][1:] == [IMG, IMG, 64] and r["cond"])
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "convnext_front",
         "route": "cuda",
         "source": "colddiff_torch/csrc/convnext_front.cu",
         "replaces": "colddiff/ops/pallas/convnext_front.py:129",
         "launches": launches,
+        "train_launches": train_launches,
         "max_abs_err": err32,
         "ms": level0["kernel_ms_bf16"],
         "plain_ms": level0["plain_ms_bf16"],
-    }]}))
+    }] + [{
+        "name": r["name"], "route": "cuda",
+        "source": "colddiff_torch/csrc/bisect_mosaic.cu", "replaces": r["replaces"],
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+    } for r in probes]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

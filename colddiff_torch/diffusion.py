@@ -1,9 +1,11 @@
-"""Diffusion configuration and the forward process.
+"""Diffusion configuration, the forward process and the training losses.
 
 Port of ``ColdDiffusion`` in ``colddiff/diffusion.py``: the degradation,
-the routine names, and ``q_sample``.  The losses (``loss_func``,
-``p_losses``, ``loss``) come with the training port (ROADMAP.md section 1,
-item 4).
+the routine names, ``q_sample``, ``loss_func``, ``p_losses`` for the
+deterministic routines (``Final``, ``Step``, ``Step_Gradient``,
+``Gradient_norm``) and ``loss``.  The routines that draw noise
+(``Final_small_noise``, ``Final_random_mean[_and_actual]``) raise
+``NotImplementedError`` (ROADMAP.md section 1, item 10).
 
 Time convention: ``t`` is the reference's step *index* in [0, T);
 ``q_sample(x, t)`` degrades by ``t + 1`` steps, and ``t = -1`` is a clean
@@ -24,17 +26,22 @@ __all__ = ["ColdDiffusion", "DenoiseFn"]
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
+_RNG_ROUTINES = ("Final_small_noise", "Final_random_mean",
+                 "Final_random_mean_and_actual")
+
 
 @dataclass(frozen=True)
 class ColdDiffusion:
-    """Degradation schedule + sampling configuration.
+    """Degradation schedule + loss/sampling configuration.
 
-    The UNet is not stored here; samplers take a ``denoise_fn(x, t)``.
+    The UNet is not stored here; losses and samplers take a
+    ``denoise_fn(x, t)``.
     """
 
     op: Degradation
     image_size: int = 32
     channels: int = 3
+    loss_type: str = "l1"
     train_routine: str = "Final"
     sampling_routine: str = "default"
     discrete: bool = False
@@ -55,3 +62,49 @@ class ColdDiffusion:
             y = quantize_uint8(y)
         clean = (t < 0).reshape(-1, *([1] * (x_start.dim() - 1))).to(y.device)
         return torch.where(clean, x_start, y)
+
+    def loss_func(self, pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+        if self.loss_type == "l1":
+            return (pred - true).abs().mean()
+        if self.loss_type == "l2":
+            return (pred - true).square().mean()
+        if self.loss_type == "sqrt":
+            return (pred - true).abs().mean().sqrt()
+        raise NotImplementedError(self.loss_type)
+
+    def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """Training loss at per-sample levels ``t`` (colddiff/diffusion.py:86-132)."""
+        routine = self.train_routine
+        if routine in _RNG_ROUTINES:
+            raise NotImplementedError(
+                f"train routine '{routine}' draws noise and is not ported yet; "
+                "see ROADMAP.md section 1, item 10")
+        x_t = self.q_sample(x_start, t)
+        if routine == "Final":
+            return self.loss_func(denoise_fn(x_t, t), x_start)
+        if routine in ("Step", "Step_Gradient"):
+            # predict x_{t-1} (Step) or x_{t-1} - x_t (Step_Gradient)
+            # (snowification diffusion.py:416-429); t = 0 targets the clean image
+            x_tm1 = self.q_sample(x_start, t - 1)
+            target = x_tm1 if routine == "Step" else x_tm1 - x_t
+            return self.loss_func(denoise_fn(x_t, t), target)
+        if routine == "Gradient_norm":
+            # predict the unit degradation direction
+            # (resolution_diffusion_pytorch.py:734-748)
+            grad = x_t - x_start
+            norm = grad.reshape(grad.shape[0], -1).norm(dim=1)
+            grad_n = grad / (norm.reshape(-1, 1, 1, 1) + 1e-5)
+            return self.loss_func(denoise_fn(x_t, t), grad_n)
+        raise NotImplementedError(routine)
+
+    def loss(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
+             generator: Optional[torch.Generator], *,
+             t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Draw t ~ U[0, T) per sample from ``generator`` and compute the
+        training loss (reference ``forward``, deblurring_diffusion_pytorch.py:
+        977-981).  A given ``t`` replaces the draw."""
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x_start.shape[0],),
+                              generator=generator, device=x_start.device)
+        return self.p_losses(denoise_fn, x_start, t)

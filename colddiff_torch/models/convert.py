@@ -7,6 +7,8 @@ file.  :func:`convnext_state_dict_from_flax` is the inverse of
 ``colddiff.models.import_torch.import_unet_convnext``: it turns a Flax
 ``UnetConvNext`` parameter tree (nested dicts of numpy arrays) into that
 state dict, so the two packages can run on the same weights.
+:func:`train_state_from_flax` carries a whole JAX training state (params,
+EMA, optax Adam moments, step) over to the port's Trainer.
 
 Tensor conversions (inverses of the JAX importer's):
   conv, depthwise conv  [kh, kw, I, O] -> [O, I, kh, kw]
@@ -19,12 +21,13 @@ from __future__ import annotations
 
 import re
 import warnings
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["convnext_state_dict_from_flax", "load_reference_checkpoint"]
+__all__ = ["convnext_state_dict_from_flax", "train_state_from_flax",
+           "load_reference_checkpoint"]
 
 # Flax top-level module -> (torch prefix, kind)
 _TOP = {
@@ -107,6 +110,53 @@ def convnext_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             _put(out, prefix, kind, sub)
     return out
+
+
+def _adam_moments(opt_state: Any):
+    """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state (found
+    by its fields, so optax need not be imported)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(params: Mapping, ema_params: Mapping, opt_state: Any,
+                          step: int, *, param_names: Sequence[str]) -> Dict[str, Any]:
+    """A JAX ``TrainState`` as the port's checkpoint blob
+    ``{step, model, ema, opt}``, which ``Trainer.load_state`` takes.
+
+    ``model`` and ``ema`` are ``UnetConvNext`` state dicts.  ``opt`` is a
+    ``torch.optim.Adam`` state dict over the parameters in the order
+    ``param_names`` (the model's ``named_parameters()`` order): optax's
+    ``ScaleByAdamState(count, mu, nu)`` becomes each parameter's ``step``,
+    ``exp_avg`` and ``exp_avg_sq``.  The moments go through the same layout
+    transforms as their parameters; Adam is elementwise, so the transformed
+    moments are the moments of the transformed parameters.  The param
+    group holds only ``params``: an optax state carries no hyperparameters,
+    and ``Trainer.load_state`` keeps its own.
+    """
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no optax ScaleByAdamState (mu, nu)")
+    model = convnext_state_dict_from_flax(params)
+    mu = convnext_state_dict_from_flax(adam.mu)
+    nu = convnext_state_dict_from_flax(adam.nu)
+    names = list(param_names)
+    if sorted(names) != sorted(model):
+        raise ValueError("param_names do not name the converted parameters: "
+                         f"{sorted(set(names) ^ set(model))}")
+    count = float(np.asarray(adam.count))
+    state = {i: {"step": torch.tensor(count, dtype=torch.float32),
+                 "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+             for i, n in enumerate(names)}
+    return {"step": int(step), "model": model,
+            "ema": convnext_state_dict_from_flax(ema_params),
+            "opt": {"state": state, "param_groups": [{"params": list(range(len(names)))}]}}
 
 
 _UNET_PREFIXES = ("time_mlp", "downs", "ups", "mid", "final_conv")

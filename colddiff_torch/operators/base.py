@@ -61,3 +61,17 @@ class Degradation:
         n = torch.full((x.shape[0],), self.timesteps, dtype=torch.long,
                        device=x.device)
         return self.degrade(x, n, x_end=x_end)
+
+    def reset(self, generator: Optional[torch.Generator], batch_size: int) -> "Degradation":
+        """Redraw any stochastic operator state (snow fields, ...); the
+        deterministic operators return themselves
+        (``ForwardProcessBase.reset_parameters``, forward_process_impl.py:49-52)."""
+        del generator, batch_size
+        return self
+
+    def sample_x_end(self, generator: Optional[torch.Generator],
+                     x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The degradation endpoint for operators that draw their own (Family
+        B); None for the deterministic operators, whose endpoint is implied."""
+        del generator, x
+        return None

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``colddiff_torch/csrc/*.cu`` compiles into one shared library with a
-plain C interface, for Hopper (``sm_90a``).  The library lands in
+plain C interface, for Hopper (``sm_90a``): one nvcc per source, all
+started together, then one link.  The library lands in
 ``build/colddiff_torch/`` at the repository root, named after a hash of the
 sources and flags, so an edited source builds anew and an unchanged one
 loads at once.  Nothing here runs at import: the first CUDA tensor that
@@ -22,10 +23,8 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "load_lib
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "colddiff_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -48,18 +47,37 @@ def library_path() -> Path:
 
 
 def build(path: Path) -> None:
-    """Compile every ``csrc/*.cu`` into ``path``; the compiler's output
-    (including ptxas register and spill counts) goes to ``path``.log."""
+    """Compile every ``csrc/*.cu`` into ``path``, one nvcc process per
+    source in parallel, then link; the compilers' output (including ptxas
+    register and spill counts) goes to ``path``.log."""
     path.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = path.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out[-4000:]}")
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stdout[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    path.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 

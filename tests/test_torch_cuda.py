@@ -75,3 +75,70 @@ def test_small_unet_gpu_matches_cpu(cuda):
         got = model.to(cuda)(x.to(cuda), t.to(cuda)).cpu()
     assert convnext_front.launches == before + 9  # 9 block fronts at dim_mults (1, 2)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["roll", "roll_slice", "masked_norm", "dyn_sublane"])
+def test_probe_kernel_matches_plain(cuda, name):
+    from colddiff_torch.ops import bisect_mosaic as ops
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rows = 70 if name == "dyn_sublane" else 64
+    width = 8192 if name == "masked_norm" else 8576
+    x = torch.randn(1, rows, width, generator=gen, device=cuda)
+    shift, split = width - 64, 8192
+    kernel, plain, args = {
+        "roll": (ops.probe_roll, ops.roll_plain, (shift,)),
+        "roll_slice": (ops.probe_roll_slice, ops.roll_slice_plain, (shift, split)),
+        "masked_norm": (ops.probe_masked_norm, ops.masked_norm_plain, ()),
+        "dyn_sublane": (ops.probe_dyn_sublane, ops.dyn_sublane_plain, ()),
+    }[name]
+    before = kernel.launches
+    got = kernel(x, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(x, *args)
+    # the rolls are copies; the sums differ only in fp32 summation order
+    tol = 0.0 if name.startswith("roll") else 1e-5
+    assert (got - want).abs().max().item() <= tol
+    with pytest.raises(TypeError):  # fp64 is not a kernel dtype: no fallback
+        kernel(x.double(), *args)
+
+
+def _small_bf16_trainer(device, folder, **kw):
+    from colddiff_torch.data import SyntheticDataset
+    from colddiff_torch.diffusion import ColdDiffusion
+    from colddiff_torch.operators import get_operator
+    from colddiff_torch.train import Trainer
+
+    op = get_operator("blur", image_size=16, timesteps=8, blur_routine="Exponential_reflect",
+                      kernel_size=15, kernel_std=0.01, device=device)
+    torch.manual_seed(0)
+    return Trainer(ColdDiffusion(op=op, image_size=16), UnetConvNext(dim=8, dim_mults=(1, 2)),
+                   SyntheticDataset(16, 3, length=8), train_batch_size=2,
+                   gradient_accumulate_every=2, results_folder=str(folder), num_workers=1,
+                   bf16=True, device=device, **kw)
+
+
+@pytest.mark.cuda
+def test_bf16_trainer_step_on_the_card(cuda, tmp_path):
+    tr = _small_bf16_trainer(cuda, tmp_path)
+    before = convnext_front.launches
+    loss = tr.train_step(tr._next_superbatch()).item()
+    assert convnext_front.launches == before + 9 * 2  # 9 fronts x 2 microbatches
+    assert torch.isfinite(torch.tensor(loss))
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+               for p in tr.model.parameters())
+
+
+@pytest.mark.cuda
+def test_bf16_trainer_train_loop_snapshots_on_the_card(cuda, tmp_path):
+    """train(): two steps, then the checkpoint and the EMA sample grids,
+    whose T=8 reverse steps also run the kernel."""
+    tr = _small_bf16_trainer(cuda, tmp_path, train_num_steps=2, save_and_sample_every=2)
+    before = convnext_front.launches
+    assert tr.train(log_every=1) == "done"
+    assert convnext_front.launches == before + 2 * 9 * 2 + 8 * 9
+    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
+    for name in ("og", "xt", "direct_recons", "sample", "model"):
+        assert list(tmp_path.glob(f"{name}*")), name

@@ -44,7 +44,9 @@ def test_every_submodule_imports_without_building():
 
     names = [m.name for m in pkgutil.walk_packages(colddiff_torch.__path__, "colddiff_torch.")]
     assert {"colddiff_torch.ops.convnext_front", "colddiff_torch.sampling",
-            "colddiff_torch.models.unet_convnext"} <= set(names)
+            "colddiff_torch.models.unet_convnext", "colddiff_torch.train",
+            "colddiff_torch.ops.bisect_mosaic", "colddiff_torch.scripts.bisect_mosaic",
+            "colddiff_torch.data.datasets", "colddiff_torch.utils"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build.load_library.cache_info().currsize == 0  # no nvcc, no dlopen

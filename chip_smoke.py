@@ -10,22 +10,37 @@ checks it, in phases:
 
   1. environment: card name and power limit, torch/CUDA/nvcc versions, TF32 off;
   2. build: the CUDA kernels compile from colddiff_torch/csrc (timed);
-  3. kernel vs plain PyTorch at every block-front shape of the flagship
-     forward at B=16, fp32 and bf16, with CUDA-event timings;
+  3. kernel vs plain PyTorch at every block front of the flagship forward
+     at B=16, fp32 and bf16 (C < 32 through the small-C kernel, C >= 32
+     through the warp kernel); each front's kernel device time over a run
+     of launches, its single-call time, the plain version's and the
+     library depthwise conv's times, its launches per forward and per train
+     step, and its bound (bytes or operations) with the share reached;
   4. UNet parity: the fp32 flagship forward on the GPU vs on the CPU;
   5. oracle sampler: x0_step_down with a perfect denoiser gives back the
      clean batch (Algorithm-2 telescoping; checks the fp32 degrade);
-  6. the main path: prepare_start + sample, timed, with the kernel's launch
-     count checked;
+  6. the main path: prepare_start + sample, timed, with the kernels' launch
+     counts checked (17 fronts a forward, the stem through the small-C
+     kernel);
   7. train-step parity: one fp32 optimizer step of a small UNet on the GPU
      vs on the CPU (loss, gradients, front launches);
   8. the training main path: ``Trainer.train()`` at full width (B=16,
      accum 2, bf16 compute on fp32 masters, Adam, EMA), 10 timed optimizer
-     steps with the kernel's launch count checked, one step with a
+     steps with the kernels' launch counts checked, one step with a
      checkpoint and the EMA sample grids, then a bitwise checkpoint round
      trip;
   9. the four Mosaic probe kernels of scripts/bisect_mosaic.py, through
-     their entry point, against their plain versions, with CUDA-event times.
+     their entry point, against their plain versions, with device times
+     over a run, bounds and, where one exists, a library call's time.
+
+Device times come from CUDA events around a run of launches that a spin
+kernel holds back until the host has queued them all, so the card runs
+them back to back: the events time the card, not the Python and ctypes
+path of each call (that path is the single-call ``call_ms``).  The L2 stays
+as the run leaves it; a row says whether its working set fits the 50 MB
+L2 ("warm") or not.  Bounds count each input byte read once and each
+output byte written once at 3.35 TB/s, and each tap as one fp32 FMA
+(2 flops) at 67 TFLOP/s: the H100 SXM's published peaks.
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero at once.  The line before the last is a JSON summary of the
@@ -34,15 +49,18 @@ kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from colddiff_torch.data import SyntheticDataset
 from colddiff_torch.diffusion import ColdDiffusion
@@ -51,7 +69,7 @@ from colddiff_torch.models.layers import ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
-from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
+from colddiff_torch.ops.convnext_front import SMALL_C, convnext_front, convnext_front_plain
 from colddiff_torch.sampling import prepare_start, sample
 from colddiff_torch.scripts import bisect_mosaic as probe_script
 from colddiff_torch.train import Trainer
@@ -70,6 +88,11 @@ TRAIN_GRAD_REL_L2 = 1e-3  # cuDNN vs oneDNN summation orders, as in phase 4
 TRAIN_STEPS = 10
 ACCUM = 2
 PROBE_ATOL = 1e-5  # fp32 summation order of the two sums
+RUN = 50  # launches per device-time run of a kernel or a library call
+PLAIN_RUN = 20  # calls per run of a plain version (~12 launches each)
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50e6
 
 
 def log(*parts) -> None:
@@ -103,16 +126,16 @@ def seeded_unet(seed: int, device, **cfg) -> UnetConvNext:
 
 def record_fronts(model: UnetConvNext, x: torch.Tensor, t: torch.Tensor):
     """Run ``model(x, t)`` and record each block front it runs:
-    (C, H, W, norm, has_cond) in call order."""
+    (block name, C, H, W, norm, has_cond) in call order."""
     shapes = []
 
-    def hook(block, args):
+    def hook(name, block, args):
         h, tt = args if len(args) == 2 else (args[0], None)
         has_cond = block.mlp is not None and tt is not None
-        shapes.append((h.shape[1], h.shape[2], h.shape[3], block.norm, has_cond))
+        shapes.append((name, h.shape[1], h.shape[2], h.shape[3], block.norm, has_cond))
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, ConvNextBlock)]
+    handles = [m.register_forward_pre_hook(functools.partial(hook, name))
+               for name, m in model.named_modules() if isinstance(m, ConvNextBlock)]
     try:
         with torch.inference_mode():
             out = model(x, t)
@@ -150,11 +173,72 @@ def cuda_median_ms(fn, warmup: int = 5, iters: int = 30) -> float:
     return float(np.median(times))
 
 
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    return 1e7 / start.elapsed_time(end)
+
+
+def device_ms(fn, n: int = RUN):
+    """Device ms per call over a run of ``n`` calls of ``fn`` that the card
+    runs back to back.  A spin kernel, longer than twice the host's time to
+    queue the run, holds the stream while the host queues it; the run counts
+    as back to back when the start event has not fired by the time the last
+    call is queued.  Returns (ms, back_to_back)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_cycles_per_ms() * (2 * host_ms + 1)))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    back_to_back = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / n, back_to_back
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def front_bound(b, h, w, c, has_cond, norm, esize):
+    """The front's bound: x read and out written once, the weights, bias,
+    cond and LayerNorm parameters read once; 49 FMAs per output."""
+    outputs = b * h * w * c
+    nbytes = esize * (2 * outputs + 49 * c + c + (b * c if has_cond else 0)
+                      + (2 * c if norm else 0))
+    return bound(nbytes, 2 * 49 * outputs)
+
+
+def timed_row(row, key, fn, n: int = RUN) -> None:
+    """``row[key]`` = device ms per call of ``fn``; flags a host-paced run."""
+    row[key], back_to_back = device_ms(fn, n)
+    if not back_to_back:
+        row.setdefault("host_paced", []).append(key)
+
+
 def check_fronts(shapes, batch: int, device, timed: bool):
-    """Phase 3: kernel vs plain at every front shape, fp32 and bf16."""
+    """Phase 3: kernel vs plain at every block front, fp32 and bf16; with
+    ``timed``, each front's device, call, plain and library times and its
+    bound (see the module docstring)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
+    per_forward = Counter(s[1:] for s in shapes)
     rows, worst32, worst16 = [], 0.0, 0.0
-    for c, h, w, norm, has_cond in shapes:
+    for front, c, h, w, norm, has_cond in shapes:
         args = front_args(gen, batch, c, h, w, has_cond, device)
         x, wk, bias, cond, gamma, beta = args
         got = convnext_front(*args, norm=norm)
@@ -174,12 +258,25 @@ def check_fronts(shapes, batch: int, device, timed: bool):
             raise AssertionError(f"bf16 front C={c} {h}x{w}: |err| - rtol*|want| = {excess}")
         err16 = (got16 - want16).abs().max().item()
         worst32, worst16 = max(worst32, err32), max(worst16, err16)
-        row = dict(shape=[batch, h, w, c], norm=norm, cond=has_cond,
-                   max_abs_err_fp32=err32, max_abs_err_bf16=err16)
+        n = per_forward[(c, h, w, norm, has_cond)]
+        row = dict(front=front, shape=[batch, h, w, c], norm=norm, cond=has_cond,
+                   kernel="small_c" if c < SMALL_C else "warp", launches_per_forward=n,
+                   launches_per_train_step=n * ACCUM, max_abs_err_fp32=err32,
+                   max_abs_err_bf16=err16)
         if timed:
             for tag, a in (("fp32", args), ("bf16", a16)):
-                row[f"kernel_ms_{tag}"] = cuda_median_ms(lambda: convnext_front(*a, norm=norm))
-                row[f"plain_ms_{tag}"] = cuda_median_ms(lambda: convnext_front_plain(*a, norm=norm))
+                bound_ms, row["bound_by_" + tag] = front_bound(
+                    batch, h, w, c, has_cond, norm, a[0].element_size())
+                row[f"bound_us_{tag}"] = 1e3 * bound_ms
+                row[f"l2_{tag}"] = ("warm" if 2 * a[0].numel() * a[0].element_size() <= L2_BYTES
+                                    else "exceeds")
+                timed_row(row, f"ms_{tag}", lambda: convnext_front(*a, norm=norm))
+                row[f"bound_share_{tag}"] = bound_ms / row[f"ms_{tag}"]
+                row[f"call_ms_{tag}"] = cuda_median_ms(lambda: convnext_front(*a, norm=norm))
+                timed_row(row, f"plain_ms_{tag}",
+                          lambda: convnext_front_plain(*a, norm=norm), PLAIN_RUN)
+                timed_row(row, f"library_ms_{tag}",
+                          lambda: F.conv2d(a[0], a[1], a[2], padding=3, groups=c))
         rows.append(row)
         log("  front", json.dumps(row))
     return rows, worst32, worst16
@@ -218,13 +315,12 @@ def main_path(model: UnetConvNext, device, batch: int, size: int, timesteps: int
     sample(d, denoise, prepare_start(d, img), t=2)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    convnext_front.launches = 0
+    convnext_front.launches = convnext_front.small_c_launches = 0
     t0 = time.perf_counter()
     out = sample(d, denoise, prepare_start(d, img)).img
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    launches = convnext_front.launches
-    return out, seconds, launches
+    return out, seconds, convnext_front.launches, convnext_front.small_c_launches
 
 
 def blur_diffusion(size: int, timesteps: int, device) -> ColdDiffusion:
@@ -237,7 +333,8 @@ def blur_diffusion(size: int, timesteps: int, device) -> ColdDiffusion:
 def train_step_parity(device, folder: str):
     """Phase 7: one fp32 optimizer step (B=2, accum 2, given t) of a small
     UNet on the GPU and on the CPU, from the same weights and batch.
-    Returns (loss rel err, worst grad rel L2, front launches, fronts)."""
+    Returns (loss rel err, worst grad rel L2, front launches, small-C
+    launches, fronts, small-C fronts)."""
     cfg, size, steps = dict(dim=16, dim_mults=(1, 2)), 32, 20
     _, fronts = record_fronts(seeded_unet(SEED, "cpu", **cfg),
                               torch.zeros(1, size, size, 3), torch.tensor([1]))
@@ -248,13 +345,15 @@ def train_step_parity(device, folder: str):
                      SyntheticDataset(size, 3, length=8), train_batch_size=2,
                      gradient_accumulate_every=ACCUM, results_folder=f"{folder}/{dev.type}",
                      num_workers=1, seed=SEED, device=dev)
-        before = convnext_front.launches
+        before = convnext_front.launches, convnext_front.small_c_launches
         loss = tr.train_step(tr._next_superbatch(), t=t.to(dev)).item()
         runs[dev.type] = (loss, [p.grad.detach().cpu() for p in tr.model.parameters()],
-                          convnext_front.launches - before)
-    (loss_g, grads_g, launches), (loss_c, grads_c, _) = runs["cuda"], runs["cpu"]
+                          convnext_front.launches - before[0],
+                          convnext_front.small_c_launches - before[1])
+    (loss_g, grads_g, launches, small), (loss_c, grads_c, _, _) = runs["cuda"], runs["cpu"]
     worst = max(rel_l2(g, c) for g, c in zip(grads_g, grads_c))
-    return abs(loss_g - loss_c) / abs(loss_c), worst, launches, len(fronts)
+    return (abs(loss_g - loss_c) / abs(loss_c), worst, launches, small, len(fronts),
+            sum(f[1] < SMALL_C for f in fronts))
 
 
 def train_main_path(device, folder: str):
@@ -264,8 +363,9 @@ def train_main_path(device, folder: str):
     whose checkpoint and EMA sample grids run (``save_and_sample_every``),
     then a checkpoint round trip into a fresh Trainer.  Each step's loss and
     time are read from the Trainer's own ``metrics.jsonl`` (the loader's
-    wait included).  Returns (losses, step seconds, front launches, peak
-    bytes, seconds of the snapshot step, whether the round trip is bitwise)."""
+    wait included).  Returns (losses, step seconds, front launches, small-C
+    launches, peak bytes, seconds of the snapshot step, whether the round
+    trip is bitwise)."""
     d = blur_diffusion(IMG, T, device)
     last = TRAIN_STEPS + 2
     kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, train_lr=2e-5,
@@ -277,10 +377,10 @@ def train_main_path(device, folder: str):
     tr.train(log_every=1)  # warm-up: cuDNN and allocator set-up
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    convnext_front.launches = 0
+    convnext_front.launches = convnext_front.small_c_launches = 0
     tr.train_num_steps = 1 + TRAIN_STEPS
     tr.train(log_every=1)
-    launches = convnext_front.launches
+    launches, small = convnext_front.launches, convnext_front.small_c_launches
     peak = torch.cuda.max_memory_allocated(device)
 
     tr.train_num_steps = last
@@ -305,12 +405,15 @@ def train_main_path(device, folder: str):
                and torch.equal(a["generator"], b["generator"])
                and all(torch.equal(v, b["opt"]["state"][i][name])
                        for i, st in a["opt"]["state"].items() for name, v in st.items()))
-    return losses, step_s, launches, peak, snap_s, bitwise
+    return losses, step_s, launches, small, peak, snap_s, bitwise
 
 
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
-    versions; returns one row per probe."""
+    versions, each with its device time over a run, its single-call time,
+    its bound (input and output bytes once; adds and subtracts as flops)
+    and, where one PyTorch call computes the same function, that call's
+    time; returns one row per probe."""
     wrappers = (probe_ops.probe_roll, probe_ops.probe_roll_slice,
                 probe_ops.probe_masked_norm, probe_ops.probe_dyn_sublane)
     for w in wrappers:
@@ -320,28 +423,41 @@ def probe_kernels(device):
     launches = [w.launches for w in wrappers]
     a = probe_script.inputs(device)
     shift = a["x"].shape[-1] - probe_script.ROLL
+    ones = torch.ones(1, 1, probe_ops.WINDOW, 1, device=device)
+    # (kernel, plain, library call or None, tolerance, input, flops, replaces)
     calls = [
         (lambda: probe_ops.probe_roll(a["x"], shift),
-         lambda: probe_ops.roll_plain(a["x"], shift), 0.0, "scripts/bisect_mosaic.py:37"),
+         lambda: probe_ops.roll_plain(a["x"], shift),
+         lambda: torch.roll(a["x"], shift, -1), 0.0, a["x"], 0,
+         "scripts/bisect_mosaic.py:37"),
         (lambda: probe_ops.probe_roll_slice(a["x"], shift, probe_script.SPLIT),
-         lambda: probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT), 0.0,
-         "scripts/bisect_mosaic.py:42"),
+         lambda: probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT), None, 0.0,
+         a["x"], 0, "scripts/bisect_mosaic.py:42"),
         (lambda: probe_ops.probe_masked_norm(a["xn"]),
-         lambda: probe_ops.masked_norm_plain(a["xn"]), PROBE_ATOL,
-         "scripts/bisect_mosaic.py:49"),
+         lambda: probe_ops.masked_norm_plain(a["xn"]), None, PROBE_ATOL, a["xn"],
+         2 * a["xn"].numel(), "scripts/bisect_mosaic.py:49"),
         (lambda: probe_ops.probe_dyn_sublane(a["xd"]),
-         lambda: probe_ops.dyn_sublane_plain(a["xd"]), PROBE_ATOL,
-         "scripts/bisect_mosaic.py:64"),
+         lambda: probe_ops.dyn_sublane_plain(a["xd"]),
+         lambda: F.conv2d(a["xd"][:, None], ones), PROBE_ATOL, a["xd"],
+         (probe_ops.WINDOW - 1) * outs[3][1].numel(), "scripts/bisect_mosaic.py:64"),
     ]
     rows = []
-    for w, (name, got), n, (kernel, plain, tol, replaces) in zip(wrappers, outs, launches,
-                                                                 calls):
+    for w, (name, got), n, (kernel, plain, library, tol, x, flops, replaces) in zip(
+            wrappers, outs, launches, calls):
         err = (got - plain()).abs().max().item()
         if not err <= tol:
             raise AssertionError(f"probe {name}: max err {err} > {tol}")
-        rows.append(dict(name=w.__name__, probe=name, launches=n, max_abs_err=err,
-                         ms=cuda_median_ms(kernel), plain_ms=cuda_median_ms(plain),
-                         replaces=replaces, sum=float(got.sum())))
+        bound_ms, bound_by = bound(x.nbytes + got.nbytes, flops)
+        row = dict(name=w.__name__, probe=name, launches=n, max_abs_err=err,
+                   bound_ms=bound_ms, bound_us=1e3 * bound_ms, bound_by=bound_by,
+                   library_ms=None, replaces=replaces, sum=float(got.sum()))
+        timed_row(row, "ms", kernel)
+        row["bound_share"] = bound_ms / row["ms"]
+        row["call_ms"] = cuda_median_ms(kernel)
+        timed_row(row, "plain_ms", plain)
+        if library is not None:
+            timed_row(row, "library_ms", library)
+        rows.append(row)
         log("  probe", json.dumps(rows[-1]))
     return rows
 
@@ -389,24 +505,35 @@ def main() -> int:
     # 3. kernel vs plain
     rows, err32, err16 = check_fronts(shapes, BATCH, dev, timed=True)
     torch.cuda.synchronize(dev)
-    log(f"[3] kernel == plain at {len(rows)} shapes: fp32 max err {err32:.3e} "
+    log(f"[3] kernel == plain at {len(rows)} fronts: fp32 max err {err32:.3e} "
         f"(<= {FRONT_FP32_ATOL}), bf16 max err {err16:.3e}")
+    for r in rows:
+        log(f"[3] {r['front']} {r['shape']} {r['kernel']} x{r['launches_per_forward']}: "
+            + "; ".join(f"{tag} {r['ms_' + tag] * 1e3:.3f} us (call {r['call_ms_' + tag]:.4f} "
+                        f"ms) vs library {r['library_ms_' + tag] * 1e3:.3f} us, plain "
+                        f"{r['plain_ms_' + tag] * 1e3:.3f} us, bound "
+                        f"{r['bound_us_' + tag]:.3f} us ({r['bound_by_' + tag]}, "
+                        f"{100 * r['bound_share_' + tag]:.2f}%, L2 {r['l2_' + tag]})"
+                        for tag in ("fp32", "bf16"))
+            + (f"; host-paced runs: {r['host_paced']}" if "host_paced" in r else ""))
+    log(f"[3] card: {card}")
 
     # 4. UNet parity, fp32, GPU vs CPU
     model32 = seeded_unet(SEED, dev, **FLAGSHIP)
-    convnext_front.launches = 0
+    convnext_front.launches = convnext_front.small_c_launches = 0
     with torch.inference_mode():
         got = model32(x1.to(dev), t1.to(dev))
     torch.cuda.synchronize(dev)
-    fwd_launches = convnext_front.launches
+    fwd_launches, fwd_small = convnext_front.launches, convnext_front.small_c_launches
     rel = rel_l2(got, want_cpu)
     # cuDNN and oneDNN sum the 3x3 convs, the attention products and the
     # LayerNorm statistics in other orders; fp32 rounding differences of
     # ~1e-6 per layer compound through ~70 layers of random weights
-    if not (rel <= UNET_REL_L2 and fwd_launches == len(shapes) == 17):
-        raise AssertionError(f"UNet parity: rel L2 {rel}, launches {fwd_launches}")
+    if not (rel <= UNET_REL_L2 and fwd_launches == len(shapes) == 17 and fwd_small == 1):
+        raise AssertionError(f"UNet parity: rel L2 {rel}, launches {fwd_launches}, "
+                             f"small-C launches {fwd_small}")
     log(f"[4] UNet fp32 cuda vs cpu rel L2 {rel:.3e} (<= {UNET_REL_L2}); "
-        f"front launches per forward {fwd_launches}")
+        f"front launches per forward {fwd_launches}, of them small-C {fwd_small}")
     del model32, model32_cpu
 
     # 5. oracle sampler
@@ -417,40 +544,45 @@ def main() -> int:
 
     # 6. main path
     model16 = seeded_unet(SEED, dev, **FLAGSHIP).to(torch.bfloat16)
-    out, seconds, launches = main_path(model16, dev, BATCH, IMG, T)
+    out, seconds, launches, small_launches = main_path(model16, dev, BATCH, IMG, T)
     if not (out.shape == (BATCH, IMG, IMG, 3) and out.dtype == torch.float32
             and torch.isfinite(out).all().item()):
         raise AssertionError(f"main path output {out.shape} {out.dtype} not finite/shaped")
-    if launches != 17 * T:
-        raise AssertionError(f"main path launched the front kernel {launches} times, "
-                             f"expected {17 * T}")
+    if launches != 17 * T or small_launches != T:
+        raise AssertionError(f"main path launched the front kernels {launches} times, "
+                             f"expected {17 * T}, the small-C kernel {small_launches} "
+                             f"times, expected {T}")
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"[6] main path B={BATCH} T={T} {IMG}px bf16: {seconds:.3f} s, "
         f"{BATCH / seconds:.3f} images/s, peak memory {peak} bytes "
-        f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
+        f"({peak / 2**30:.2f} GiB), front launches {launches}, of them small-C "
+        f"{small_launches}; card: {card}")
 
     del model16
     with tempfile.TemporaryDirectory() as folder:
         # 7. train-step parity, fp32, GPU vs CPU
-        loss_err, grad_err, step_launches, nfronts = train_step_parity(dev, folder + "/p7")
+        loss_err, grad_err, step_launches, step_small, nfronts, nsmall = \
+            train_step_parity(dev, folder + "/p7")
         if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_REL_L2
-                and step_launches == nfronts * ACCUM):
+                and step_launches == nfronts * ACCUM and step_small == nsmall * ACCUM):
             raise AssertionError(f"train-step parity: loss rel err {loss_err}, grad rel "
                                  f"L2 {grad_err}, launches {step_launches} != "
-                                 f"{nfronts} x {ACCUM}")
+                                 f"{nfronts} x {ACCUM} or small-C {step_small} != "
+                                 f"{nsmall} x {ACCUM}")
         log(f"[7] train step fp32 cuda vs cpu: loss rel err {loss_err:.3e} "
             f"(<= {TRAIN_LOSS_RTOL}), worst grad rel L2 {grad_err:.3e} "
             f"(<= {TRAIN_GRAD_REL_L2}), front launches {step_launches} = "
-            f"{nfronts} fronts x {ACCUM}")
+            f"{nfronts} fronts x {ACCUM}, of them small-C {step_small} = {nsmall} x {ACCUM}")
 
         # 8. the training main path
-        losses, step_s, train_launches, train_peak, snap_s, bitwise = \
+        losses, step_s, train_launches, train_small, train_peak, snap_s, bitwise = \
             train_main_path(dev, folder + "/p8")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"training losses not finite: {losses}")
-    if train_launches != 17 * ACCUM * TRAIN_STEPS:
-        raise AssertionError(f"training launched the front kernel {train_launches} "
-                             f"times, expected {17 * ACCUM * TRAIN_STEPS}")
+    if train_launches != 17 * ACCUM * TRAIN_STEPS or train_small != ACCUM * TRAIN_STEPS:
+        raise AssertionError(f"training launched the front kernels {train_launches} "
+                             f"times, expected {17 * ACCUM * TRAIN_STEPS}, the small-C "
+                             f"kernel {train_small} times, expected {ACCUM * TRAIN_STEPS}")
     if not bitwise:
         raise AssertionError("checkpoint round trip is not bitwise equal")
     images = BATCH * ACCUM
@@ -460,31 +592,45 @@ def main() -> int:
         f"steps, loader included: {step_ms:.3f} ms per optimizer step (median "
         f"{1e3 * float(np.median(step_s)):.3f}), {images / (step_ms / 1e3):.3f} train "
         f"images/s; peak memory {train_peak} bytes ({train_peak / 2**30:.2f} GiB); front "
-        f"launches {train_launches}; the step with save + EMA snapshot (T={T}) "
+        f"launches {train_launches}, of them small-C {train_small}; the step with save + EMA snapshot (T={T}) "
         f"{snap_s:.3f} s; checkpoint round trip bitwise; card: {card}")
 
     # 9. probes
     probes = probe_kernels(dev)
     log("[9] probes: " + ", ".join(f"{r['name']} max err {r['max_abs_err']:.3e} "
-                                    f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
-                                    for r in probes) + f"; card: {card}")
+                                    f"{r['ms'] * 1e3:.3f} us vs plain "
+                                    f"{r['plain_ms'] * 1e3:.3f} us, bound "
+                                    f"{r['bound_us']:.3f} us" for r in probes)
+        + f"; card: {card}")
 
+    def front_entry(name, row, launched, train_launched, small):
+        """The kernels-line entry of one front kernel at ``row``'s shape, bf16
+        (the main path's dtype); max_abs_err is fp32, over its fronts."""
+        return {
+            "name": name, "route": "cuda", "source": "colddiff_torch/csrc/convnext_front.cu",
+            "replaces": "colddiff/ops/pallas/convnext_front.py:129",
+            "launches": launched, "train_launches": train_launched,
+            "max_abs_err": max(r["max_abs_err_fp32"] for r in rows
+                               if (r["kernel"] == "small_c") == small),
+            "shape": row["shape"], "dtype": "bfloat16", "ms": row["ms_bf16"],
+            "plain_ms": row["plain_ms_bf16"], "library_ms": row["library_ms_bf16"],
+            "bound_ms": row["bound_us_bf16"] / 1e3, "bound_us": row["bound_us_bf16"],
+            "bound_by": row["bound_by_bf16"],
+        }
+
+    stem = next(r for r in rows if r["kernel"] == "small_c")
     level0 = next(r for r in rows if r["shape"][1:] == [IMG, IMG, 64] and r["cond"])
-    kernels = [{
-        "name": "convnext_front",
-        "route": "cuda",
-        "source": "colddiff_torch/csrc/convnext_front.cu",
-        "replaces": "colddiff/ops/pallas/convnext_front.py:129",
-        "launches": launches,
-        "train_launches": train_launches,
-        "max_abs_err": err32,
-        "ms": level0["kernel_ms_bf16"],
-        "plain_ms": level0["plain_ms_bf16"],
-    }] + [{
+    kernels = [
+        front_entry("convnext_front_small_c", stem, small_launches, train_small, True),
+        front_entry("convnext_front", level0, launches - small_launches,
+                    train_launches - train_small, False),
+    ] + [{
         "name": r["name"], "route": "cuda",
         "source": "colddiff_torch/csrc/bisect_mosaic.cu", "replaces": r["replaces"],
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_us": r["bound_us"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
     } for r in probes]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ def get_operator(name: str, **cfg) -> Degradation:
     """Build a degradation operator by name (only 'blur' is ported).
 
     ``cfg`` is the JAX ``get_operator``'s keywords plus ``device``, where the
-    operator's tables live.
+    operator's tables live: ``"cuda"`` unless the caller asks for the CPU.
     """
     if name in _PENDING:
         raise NotImplementedError(

@@ -52,8 +52,14 @@ class GaussianBlur(Degradation):
         start_kernel_std: float = 0.01,
         target_kernel_std: float = 1.0,
         discrete: bool = False,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "GaussianBlur":
+        """Build the tables on ``device``: the card by default, like the
+        ``Trainer``; with no CUDA device, pass ``device="cpu"``."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("GaussianBlur on a CUDA device, but no CUDA device is "
+                               "available; pass device='cpu' to build it on the CPU")
         params = blur_routine_params(
             blur_routine, timesteps, kernel_size, kernel_std,
             start_kernel_std, target_kernel_std,

@@ -6,16 +6,23 @@
 the LayerNorm runs over channels with biased variance; ``norm=False`` skips
 it and ``cond=None`` adds only ``b_dw``.
 
-On a CUDA tensor this launches the hand-written Hopper kernel in
-``colddiff_torch/csrc/convnext_front.cu``, which replaces the TPU kernel of
+On a CUDA tensor this launches one of two hand-written Hopper kernels in
+``colddiff_torch/csrc/convnext_front.cu``, which replace the TPU kernel of
 ``colddiff/ops/pallas/convnext_front.py`` (``_pallas_forward_packed`` ->
-``_kernel_packed``).  The kernel gives each output pixel one warp, with lanes
-over channels; taps and statistics accumulate in fp32 for fp32 and bf16
-inputs, and the output is rounded once.  It is bound by bytes: about 49
-L1/L2 reads per element against one device-memory read of x and one write
-of the output.  It takes every channel count from 1 to 1024, so all 17
-block fronts of the flagship UNet run through it (the TPU kernel took only
-C | 128 with C < 128).
+``_kernel_packed``); the C entry point picks the kernel by the channel
+count.  Both accumulate taps and statistics in fp32 for fp32 and bf16
+inputs and round the output once.
+
+- C < 32 (``SMALL_C``; the C=3 stem, C=1, narrow test UNets): the small-C
+  kernel, one thread per output pixel holding all C channels, over a 16x16
+  output tile whose input halo sits in shared memory.  It takes the weights
+  in their torch layout [C, 49], so the call copies nothing.
+- C >= 32, up to 1024: the warp kernel, one warp per output pixel with
+  lanes over channels; it takes the weights tap-major [49, C], a copy made
+  per call.
+
+So all 17 block fronts of the flagship UNet run through a kernel (the TPU
+kernel took only C | 128 with C < 128).
 
 On a CPU tensor the same call runs :func:`convnext_front_plain`, the plain
 PyTorch version, which the tests hold against the JAX reference and which
@@ -38,9 +45,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS"]
+__all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS", "SMALL_C"]
 
-MAX_CHANNELS = 1024  # the kernel holds ceil(C/32) <= 32 channels per lane
+MAX_CHANNELS = 1024  # the warp kernel holds ceil(C/32) <= 32 channels per lane
+SMALL_C = 32  # C < SMALL_C launches the small-C kernel (kSmallCLimit in the .cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -110,7 +118,9 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     x = x.to(dt)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("convnext_front kernel needs x in torch.channels_last memory")
-    wt = w.reshape(c, 49).t().to(dt).contiguous()  # [49, C]: tap-major
+    small = c < SMALL_C
+    wk = w.reshape(c, 49)  # the small-C kernel takes the torch layout [C, 49]
+    wk = (wk if small else wk.t()).to(dt).contiguous()  # the warp kernel: [49, C]
     b = b.to(dt).contiguous()
     if cond is not None:
         cond = cond.to(dt).contiguous()
@@ -120,7 +130,7 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
                       memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         err = _kernel()(
-            x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(),
             None if cond is None else cond.data_ptr(),
             gamma.data_ptr() if norm else None, beta.data_ptr() if norm else None,
             out.data_ptr(), bsz, hgt, wid, c, int(norm), float(eps),
@@ -128,6 +138,8 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"convnext_front kernel launch failed: cudaError {err}")
     convnext_front.launches += 1
+    if small:
+        convnext_front.small_c_launches += 1
     return out
 
 
@@ -163,8 +175,10 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
                    eps: float = 1e-5) -> torch.Tensor:
     """Fused dw7x7 + bias + cond + LayerNorm; see the module docstring.
 
-    ``convnext_front.launches`` counts the kernel's launches (CPU calls and
-    comparisons made through :func:`convnext_front_plain` do not count).
+    ``convnext_front.launches`` counts the launches of both kernels and
+    ``convnext_front.small_c_launches`` those of the small-C kernel alone
+    (CPU calls and comparisons made through :func:`convnext_front_plain` do
+    not count).
     """
     if norm and (gamma is None or beta is None):
         raise ValueError("convnext_front: norm=True needs gamma and beta")
@@ -172,3 +186,4 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
 
 
 convnext_front.launches = 0
+convnext_front.small_c_launches = 0

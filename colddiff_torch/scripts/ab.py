@@ -1,0 +1,141 @@
+"""Compare checkouts of the repository on one GPU, each in a process of its own.
+
+    python -m colddiff_torch.scripts.ab fronts ROOT [ROOT ...]
+    python -m colddiff_torch.scripts.ab main ROOT [ROOT ...]
+    python -m colddiff_torch.scripts.ab sample ROOT [ROOT ...]
+
+Each ROOT is a directory that holds a checkout (an unpacked ``git archive``
+will do) with its own ``chip_smoke.py`` and ``colddiff_torch/``.  The roots
+run in the order given, one child process each, which imports that root's
+``chip_smoke`` and builds that root's kernels; name the two versions in
+turns (``parent change change parent``) to see the spread between runs.
+Each child prints one JSON line per measurement:
+
+- ``fronts``: the block-front kernel at (16, 128, 128, C) for the stem
+  (C=3, ``norm=False``) and C = 8, 16, 31 (``norm=True``), all with
+  conditioning, fp32 and bf16: its max error against the plain version and
+  three device-time runs of ``chip_smoke.device_ms`` (so the root's
+  ``chip_smoke.py`` must have it);
+- ``main``: sampled images/s of ``chip_smoke.main_path`` (phase 6) and train
+  images/s of ``chip_smoke.train_main_path`` (phase 8, loader included);
+- ``sample``: sampled images/s of three ``chip_smoke.main_path`` runs in a
+  row, and the host's time to queue one bf16 UNet forward (B=16, 128 px)
+  against the wall time of one that ends in a synchronise, each the mean
+  of 10.
+
+Without a CUDA device it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+MODES = ("fronts", "main", "sample")
+FRONTS = ((3, False), (8, True), (16, True), (31, True))  # (C, norm)
+
+
+def _fronts(cs, dev) -> None:
+    import torch
+    from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for c, norm in FRONTS:
+        args = cs.front_args(gen, cs.BATCH, c, cs.IMG, cs.IMG, True, dev)
+        a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
+        a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
+        row = {"C": c, "norm": norm}
+        for tag, a in (("fp32", args), ("bf16", a16)):
+            got = convnext_front(*a, norm=norm).float()
+            want = convnext_front_plain(*[None if t is None else t.float() for t in a],
+                                        norm=norm)
+            row["max_abs_err_" + tag] = (got - want).abs().max().item()
+            row["us_" + tag] = [1e3 * cs.device_ms(lambda: convnext_front(*a, norm=norm))[0]
+                                for _ in range(3)]
+        print(json.dumps(row), flush=True)
+
+
+def _main_paths(cs, dev) -> None:
+    import tempfile
+
+    import torch
+
+    model = cs.seeded_unet(cs.SEED, dev, **cs.FLAGSHIP).to(torch.bfloat16)
+    res = cs.main_path(model, dev, cs.BATCH, cs.IMG, cs.T)
+    print(json.dumps({"images_per_s": cs.BATCH / res[1], "launches": list(res[2:])}),
+          flush=True)
+    del model
+    with tempfile.TemporaryDirectory() as folder:
+        step_s = cs.train_main_path(dev, folder)[1]
+    mean = sum(step_s) / len(step_s)
+    print(json.dumps({"train_ms": 1e3 * mean, "train_images_per_s": cs.BATCH * cs.ACCUM / mean,
+                      "step_ms": [1e3 * s for s in step_s]}), flush=True)
+
+
+def _sample(cs, dev) -> None:
+    import time
+
+    import torch
+
+    model = cs.seeded_unet(cs.SEED, dev, **cs.FLAGSHIP).to(torch.bfloat16)
+    rates = [cs.BATCH / cs.main_path(model, dev, cs.BATCH, cs.IMG, cs.T)[1] for _ in range(3)]
+    x = torch.zeros(cs.BATCH, cs.IMG, cs.IMG, 3, device=dev, dtype=torch.bfloat16)
+    t = torch.full((cs.BATCH,), cs.T // 2, device=dev)
+    with torch.inference_mode():
+        model(x, t)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model(x, t)
+        queue_ms = 1e2 * (time.perf_counter() - t0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model(x, t)
+            torch.cuda.synchronize(dev)
+        wall_ms = 1e2 * (time.perf_counter() - t0)
+    print(json.dumps({"images_per_s": rates, "forward_queue_ms": queue_ms,
+                      "forward_wall_ms": wall_ms}), flush=True)
+
+
+def child(mode: str, root: str) -> int:
+    """Measure ``root`` (this process imports only that root's code)."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from colddiff_torch.ops import _build
+
+    for mod in (cs, _build):
+        if not Path(mod.__file__).resolve().is_relative_to(Path(root).resolve()):
+            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    print(json.dumps({"root": root, "mode": mode, "card": cs.gpu_name_and_power()}), flush=True)
+    {"fronts": _fronts, "main": _main_paths, "sample": _sample}[mode](cs, torch.device("cuda", 0))
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) >= 3 and argv[0] == "--child":
+        return child(argv[1], argv[2])
+    if len(argv) < 2 or argv[0] not in MODES:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab: no CUDA device; the comparison runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    for root in argv[1:]:
+        proc = subprocess.run([sys.executable, __file__, "--child", argv[0], root])
+        if proc.returncode != 0:
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

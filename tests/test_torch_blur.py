@@ -28,7 +28,7 @@ ROUTINES = ["Incremental", "Constant", "Constant_reflect", "Exponential",
 
 @pytest.fixture(scope="module")
 def bench_ops():
-    return JGaussianBlur.create(**BENCH), get_operator("blur", **BENCH)
+    return JGaussianBlur.create(**BENCH), get_operator("blur", **BENCH, device="cpu")
 
 
 def _images(rng, b, size):
@@ -97,7 +97,7 @@ def test_degrade_zero_steps_is_identity(rng, bench_ops):
 def test_small_routines_and_discrete_collapse_match_jax(rng, routine, discrete):
     cfg = dict(image_size=16, timesteps=6, blur_routine=routine, kernel_size=5,
                kernel_std=0.7, discrete=discrete)
-    jop, op = JGaussianBlur.create(**cfg), GaussianBlur.create(**cfg)
+    jop, op = JGaussianBlur.create(**cfg), GaussianBlur.create(**cfg, device="cpu")
     x = _images(rng, 3, 16)
     n = np.asarray([0, 3, 6], np.int32)
     for name in ("degrade", "degrade_sampling"):
@@ -120,7 +120,7 @@ def test_q_sample_matches_jax(rng, discrete):
                kernel_size=5, kernel_std=0.7)
     jd = JColdDiffusion(op=JGaussianBlur.create(**cfg), image_size=16,
                         discrete=discrete)
-    d = ColdDiffusion(op=GaussianBlur.create(**cfg), image_size=16,
+    d = ColdDiffusion(op=GaussianBlur.create(**cfg, device="cpu"), image_size=16,
                       discrete=discrete)
     x = _images(rng, 4, 16)
     t = np.asarray([-1, 0, 2, 5], np.int32)
@@ -139,8 +139,20 @@ def test_get_operator_names():
         get_operator("no_such_op")
 
 
+def test_operator_tables_default_to_the_card():
+    """Without ``device`` the tables go to the card; with no CUDA device the
+    call raises rather than build them on the CPU unasked."""
+    cfg = dict(image_size=8, timesteps=3, kernel_size=3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_operator("blur", **cfg)
+        return
+    op = get_operator("blur", **cfg)
+    assert op.cum.is_cuda and op.steps.is_cuda
+
+
 def test_operator_to_device_copies_tables():
-    op = GaussianBlur.create(image_size=8, timesteps=3, kernel_size=3)
+    op = GaussianBlur.create(image_size=8, timesteps=3, kernel_size=3, device="cpu")
     moved = op.to("cpu")
     assert moved.cum.device.type == "cpu" and moved.timesteps == 3
     assert torch.equal(moved.cum, op.cum) and torch.equal(moved.steps, op.steps)

@@ -53,6 +53,13 @@ CASES += [(shape, norm, True) for shape in [(2, 16, 16, 8), (1, 8, 8, 64),
           for norm in (True, False)]
 
 
+# C=1 and the C=3 stem: on the card these take the small-C kernel.  The
+# Pallas interpret path takes only C | 128 with C >= 8, so here the port is
+# held against convnext_front_reference alone.
+SMALL_C_CASES = [((2, 9, 11, c), norm, cond) for c in (1, 3)
+                 for norm in (True, False) for cond in (True, False)]
+
+
 @pytest.mark.parametrize("shape,norm,with_cond", CASES)
 def test_plain_matches_reference_and_interpret(rng, shape, norm, with_cond):
     b, h, w, c = shape
@@ -68,6 +75,19 @@ def test_plain_matches_reference_and_interpret(rng, shape, norm, with_cond):
     for got in (plain, wrapped):
         np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
         np.testing.assert_allclose(got, interp, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("shape,norm,with_cond", SMALL_C_CASES)
+def test_plain_matches_reference_at_small_c(rng, shape, norm, with_cond):
+    b, h, w, c = shape
+    x = rng.standard_normal(shape).astype(np.float32)
+    wk, bias, cond, gamma, beta = _args(rng, b, c)
+    cond = cond if with_cond else None
+    jargs = [None if a is None else jnp.asarray(a) for a in (x, wk, bias, cond, gamma, beta)]
+    want = np.asarray(convnext_front_reference(*jargs, norm=norm))
+    targs = _to_torch(x, wk, bias, cond, gamma, beta)
+    for got in (convnext_front_plain(*targs, norm=norm), convnext_front(*targs, norm=norm)):
+        np.testing.assert_allclose(_nhwc(got), want, rtol=3e-5, atol=3e-5)
 
 
 def test_bf16_activations_fp32_params_promote_like_flax(rng):

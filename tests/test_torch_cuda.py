@@ -1,4 +1,4 @@
-"""colddiff_torch's CUDA kernel on the GPU (skips without one).
+"""colddiff_torch's CUDA kernels on the GPU (skips without one).
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from colddiff_torch.models import UnetConvNext
-from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
+from colddiff_torch.ops.convnext_front import SMALL_C, convnext_front, convnext_front_plain
 
 
 @pytest.fixture
@@ -33,17 +33,30 @@ def _front_args(gen, b, c, h, w, with_cond, dtype, device):
     return x, randn(c, 1, 7, 7, scale=0.05), randn(c, scale=0.1), cond, gamma, randn(c, scale=0.1)
 
 
+# the warp kernel (C >= 32, C=32 its smallest) and the small-C kernel, the
+# latter at every padded width (1, 2, 4, 8, 16, 32 channels) with C at and
+# between them, on tiles cut by the image edge (9x11, 130x7) and at the stem
+FRONT_CASES = [(2, 64, 32, 32, True, True), (2, 3, 16, 16, False, True),
+               (1, 1024, 8, 8, True, True), (2, 96, 9, 11, True, False),
+               (1, 1, 5, 3, True, True), (2, 32, 9, 11, True, True)]
+FRONT_CASES += [(b, c, h, w, norm, with_cond) for c in (1, 2, 3, 4, 5, 8, 16, 17, 31)
+                for b, h, w in ((2, 9, 11), (1, 130, 7))
+                for norm in (True, False) for with_cond in (True, False)]
+FRONT_CASES += [(3, 3, 128, 128, norm, with_cond)
+                for norm in (True, False) for with_cond in (True, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,h,w,norm,with_cond", [
-    (2, 64, 32, 32, True, True), (2, 3, 16, 16, False, True),
-    (1, 1024, 8, 8, True, True), (2, 96, 9, 11, True, False), (1, 1, 5, 3, True, True)])
+@pytest.mark.parametrize("b,c,h,w,norm,with_cond", FRONT_CASES)
 def test_kernel_matches_plain(cuda, dtype, b, c, h, w, norm, with_cond):
     gen = torch.Generator(device=cuda).manual_seed(0)
     args = _front_args(gen, b, c, h, w, with_cond, dtype, cuda)
-    before = convnext_front.launches
+    before, small_before = convnext_front.launches, convnext_front.small_c_launches
     got = convnext_front(*args, norm=norm)
+    torch.cuda.synchronize()
     assert convnext_front.launches == before + 1
+    assert convnext_front.small_c_launches == small_before + (c < SMALL_C)
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     want = convnext_front_plain(*[None if a is None else a.float() for a in args], norm=norm)
     # fp32: summation order only; bf16: one rounding of outputs up to ~4

@@ -71,3 +71,10 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_ab_script_needs_a_mode_and_a_gpu():
+    from colddiff_torch.scripts import ab
+
+    assert ab.main([]) == 2  # no mode: prints its usage
+    assert ab.main(["fronts", str(ROOT)]) == 2  # no CUDA device here: no child runs

@@ -51,7 +51,7 @@ def flax_params():
 def _diffusions(routine):
     jd = JColdDiffusion(op=JGaussianBlur.create(**BLUR), image_size=16,
                         sampling_routine=routine)
-    d = ColdDiffusion(op=get_operator("blur", **BLUR), image_size=16,
+    d = ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), image_size=16,
                       sampling_routine=routine)
     return jd, d
 
@@ -100,7 +100,7 @@ def test_oracle_reconstruction_t200_32px():
     """Algorithm 2 telescopes: with a perfect x0 the sampler returns x0."""
     op = get_operator("blur", image_size=32, timesteps=200,
                       blur_routine="Exponential_reflect", kernel_size=15,
-                      kernel_std=0.01)
+                      kernel_std=0.01, device="cpu")
     d = ColdDiffusion(op=op, image_size=32, sampling_routine="x0_step_down")
     clean = torch.from_numpy(
         np.random.default_rng(1).uniform(-1.0, 1.0, (2, 32, 32, 3)).astype(np.float32))
@@ -111,7 +111,7 @@ def test_oracle_reconstruction_t200_32px():
 
 
 def test_recon_noise_uses_the_generator():
-    op = get_operator("blur", **BLUR)
+    op = get_operator("blur", **BLUR, device="cpu")
     d = ColdDiffusion(op=op, image_size=16, sampling_routine="x0_step_down",
                       recon_noise_std=0.01)
     x = torch.zeros(1, 16, 16, 3)
@@ -123,7 +123,7 @@ def test_recon_noise_uses_the_generator():
 
 
 def test_grad_flows_when_asked():
-    d = ColdDiffusion(op=get_operator("blur", **BLUR), image_size=16,
+    d = ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), image_size=16,
                       sampling_routine="x0_step_down")
     scale = torch.tensor(0.5, requires_grad=True)
     x = torch.ones(1, 16, 16, 3)
@@ -135,7 +135,7 @@ def test_grad_flows_when_asked():
 @pytest.mark.parametrize("call", ["family_b", "step_model", "ddim", "trajectory",
                                   "all_sample", "multi_step"])
 def test_unported_branches_raise(call):
-    op = get_operator("blur", **BLUR)
+    op = get_operator("blur", **BLUR, device="cpu")
     x = torch.zeros(1, 16, 16, 3)
     ident = lambda xt, t: xt  # noqa: E731
     make = functools.partial(ColdDiffusion, op=op, image_size=16)

@@ -72,7 +72,7 @@ def _jax_trainer(folder, **kw):
 
 
 def _port_trainer(folder, dtype=torch.float32, **kw):
-    d = ColdDiffusion(op=get_operator("blur", **BLUR), image_size=16,
+    d = ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), image_size=16,
                       sampling_routine="x0_step_down")
     args = {**KW, "device": "cpu", **kw}
     return Trainer(d, UnetConvNext(dim=DIM, dim_mults=MULTS).to(dtype),

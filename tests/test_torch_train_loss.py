@@ -59,7 +59,7 @@ def _jax_apply(dtype: str):
 def _diffusions(routine, loss_type):
     kw = dict(image_size=16, train_routine=routine, loss_type=loss_type)
     return (JColdDiffusion(op=JGaussianBlur.create(**BLUR), **kw),
-            ColdDiffusion(op=get_operator("blur", **BLUR), **kw))
+            ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), **kw))
 
 
 def _port_model(flax_params, dtype):

@@ -12,10 +12,11 @@ checks it, in phases:
   2. build: the CUDA kernels compile from colddiff_torch/csrc (timed);
   3. kernel vs plain PyTorch at every block front of the flagship forward
      at B=16, fp32 and bf16 (C < 32 through the small-C kernel, C >= 32
-     through the warp kernel); each front's kernel device time over a run
+     through the tile kernel); each front's kernel device time over a run
      of launches, its single-call time, the plain version's and the
      library depthwise conv's times, its launches per forward and per train
-     step, and its bound (bytes or operations) with the share reached;
+     step, and its bound (bytes or operations) with the share reached; and
+     the sums of device, library and bound times over the C >= 32 fronts;
   4. UNet parity: the fp32 flagship forward on the GPU vs on the CPU;
   5. oracle sampler: x0_step_down with a perfect denoiser gives back the
      clean batch (Algorithm-2 telescoping; checks the fp32 degrade);
@@ -260,7 +261,7 @@ def check_fronts(shapes, batch: int, device, timed: bool):
         worst32, worst16 = max(worst32, err32), max(worst16, err16)
         n = per_forward[(c, h, w, norm, has_cond)]
         row = dict(front=front, shape=[batch, h, w, c], norm=norm, cond=has_cond,
-                   kernel="small_c" if c < SMALL_C else "warp", launches_per_forward=n,
+                   kernel="small_c" if c < SMALL_C else "tile", launches_per_forward=n,
                    launches_per_train_step=n * ACCUM, max_abs_err_fp32=err32,
                    max_abs_err_bf16=err16)
         if timed:
@@ -516,6 +517,12 @@ def main() -> int:
                         f"{100 * r['bound_share_' + tag]:.2f}%, L2 {r['l2_' + tag]})"
                         for tag in ("fp32", "bf16"))
             + (f"; host-paced runs: {r['host_paced']}" if "host_paced" in r else ""))
+    tile = [r for r in rows if r["kernel"] == "tile"]
+    for tag in ("fp32", "bf16"):
+        log(f"[3] the {len(tile)} C >= {SMALL_C} fronts of one forward, {tag}, summed: "
+            f"kernel {1e3 * sum(r['ms_' + tag] for r in tile):.3f} us, library "
+            f"{1e3 * sum(r['library_ms_' + tag] for r in tile):.3f} us, bound "
+            f"{sum(r['bound_us_' + tag] for r in tile):.3f} us")
     log(f"[3] card: {card}")
 
     # 4. UNet parity, fp32, GPU vs CPU

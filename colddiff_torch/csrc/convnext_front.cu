@@ -6,34 +6,71 @@
 // Replaces the TPU kernel in colddiff/ops/pallas/convnext_front.py
 // (_pallas_forward_packed -> _kernel_packed).  None of the TPU layout tricks
 // carry over (lane packing, pltpu.roll, H tiling): they exist for 128-lane
-// vector registers.
+// vector registers.  x and out are NHWC in memory (NCHW tensors in
+// channels_last format); taps, bias, conditioning and the LayerNorm
+// statistics are fp32 for fp32 and bf16 inputs, and the output rounds once.
+// Two kernels, picked by C.
 //
-// Design: one warp per output pixel; lane l owns channels l, l+32, l+64, ...
-// x is NHWC in memory (an NCHW tensor in channels_last format), so the 32
-// lanes of a warp read 32 neighbouring channels of one input pixel: one
-// coalesced load per tap.  Taps, bias and conditioning accumulate in fp32
-// registers for any input dtype; the warp then reduces mean and (biased)
-// variance with shuffles, applies gamma/beta and rounds once to the output
-// dtype.
+// Tile kernel (C >= 32, up to 1024).  What bounds it on the H100: operations
+// in bf16, bytes in fp32.  Each output costs 49 fp32 FMAs; at the
+// (16,128,128,64) front that is 822 M FMAs, 24.5 us at the 67 TFLOP/s fp32
+// peak, while x read once and out written once are 67 MB in bf16 (20 us at
+// 3.35 TB/s) and 134 MB in fp32 (40 us).  So the FMA pipe has to be kept
+// busy: every other instruction (a shared load, a bf16 widening, an
+// address) takes an issue slot from it, and the design is about issuing
+// few of them per FMA.  How it gets each property:
 //
-// What bounds it: bytes.  Each output element costs 49 FMAs and 49 loads of
-// x and of the tap weights.  Those loads hit L1/L2 (the 8 warps of a block
-// are 8 neighbouring pixels of one row and share most of their 7x7 windows),
-// so device memory sees roughly one read of x and one write of out per
-// element; the kernel's floor is that traffic, and the L1 load rate it
-// reaches is what later versions would raise (shared-memory row tiles,
-// 16-byte vector loads).
-//
-// The weights arrive as [49, C] (tap-major), so the lanes' weight loads are
-// coalesced too.  This warp kernel takes C from 32 to 1024 (NK = ceil(C/32)
-// <= 32 channels per lane, held in registers).
+// 1. A block owns a TH x TW tile of one image and all C channels of it
+//    (grid ceil(W/TW) x ceil(H/TH) x B), so the LayerNorm closes inside the
+//    block and one cond row serves it.  A thread owns one run of R
+//    consecutive outputs along W and one channel pair in each of NIT chunks
+//    of CK channels: 32 fp32 accumulators, 256 threads and 8,192 outputs a
+//    block (512 and 16,384 at the largest tile).  The configuration is
+//    compile-time and follows C (TileC64 .. TileC1024): 8x16 with R = 16 at
+//    C <= 64, 8x8 with R = 8 at <= 128, 4x8 with R = 8 at <= 256, 4x4 with
+//    R = 4 at <= 512 and at <= 1024 (CK = 256, 512 threads).  Where a
+//    configuration would give the card fewer than kMinBlocks blocks (the
+//    16 px levels), the next one is taken: 256 blocks at (16,16,16,256),
+//    (16,16,16,512) and (16,16,16,1024).  The 4x4 tile at C = 1024 re-reads
+//    the weights and the halo half as often as a 2x4 one, which was L2-bound.
+// 2. The input halo of one channel chunk, (TH+6) x (TW+6) x CK, is staged
+//    in shared memory once, in the input's dtype, zero outside the image
+//    and beyond C, so the tap loop has no edge branches.  It arrives by
+//    16-byte cp.async copies whose zero-fill (src-size 0) gives the
+//    padding, whenever C fills 16-byte units and x is 16-byte aligned;
+//    element loads otherwise.  Chunks stream through that buffer (largest
+//    halo: 51 KB bf16 / 102 KB fp32 at the 4x4 tile, CK = 256), and the
+//    accumulators stay in registers across them.  A warp reads 32
+//    consecutive channel pairs of one pixel (4 or 8 bytes a lane,
+//    contiguous), so the reads meet in no bank and need no swizzle.
+// 3. x is reused from registers: for each of the 7 rows of its window, a
+//    thread reads the R+6 inputs of that row once and the 7 weights of
+//    that row once and does 7R FMAs per channel: (R+6+7)/(7R) shared loads
+//    per FMA, 0.26 at R = 16, where one warp per pixel made 2 global loads
+//    per FMA.  The dy and dx loops are unrolled; offsets inside the tile are
+//    32-bit.  bf16 widens at the FMA (a shift or a mask per value).
+// 4. The weights arrive in their torch layout [C, 49] ([C,1,7,7]
+//    contiguous, already in the compute dtype): each chunk's CK x 49 run
+//    is read with 16-byte loads and transposed into shared [49][CK+2] as
+//    fp32, widened once per block (the padding of 2 staggers the banks of
+//    the transposing stores).  bias + cond, gamma and beta are read once
+//    per block into shared fp32 vectors.
+// 5. The LayerNorm keeps the two-pass form (mean, then the mean of squared
+//    deviations; biased variance), fp32.  A pixel's channels lie on the
+//    threads of its run: within a warp a reduce-scatter over shuffles sums
+//    the R pixels of the run (R - 1 shuffles, then R to broadcast), and
+//    where a run spans several warps a shared array sums across them.  The
+//    rounded outputs are staged in shared memory (the halo buffer, free by
+//    then) and each pixel's C outputs leave with 16-byte stores.
+// 6. It replaces an earlier warp-per-pixel kernel (2 global loads per FMA,
+//    no reuse in registers, a weight transpose copy per call), whose
+//    times stay in PERF.md.  Instantiations: the five configurations, each
+//    for fp32 and bf16.
 //
 // Small C (C < 32): a second kernel, for the same TPU kernel at the
 // channel counts it never took (the C=3 stem of every UNet, C=1 for MNIST,
-// the narrow test UNets' C=8/16).  The warp kernel is slow there for two
-// reasons: at C=3, 29 of a warp's 32 lanes idle, and every output pixel
-// makes 49 global (L1/L2) loads per channel group, with 8 pixels per block
-// sharing little of them.  The small-C kernel gives each output pixel one
+// the narrow test UNets' C=8/16), where a channel pair per thread would
+// idle most of a warp.  The small-C kernel gives each output pixel one
 // thread, which holds all C channels in fp32 registers (padded to CP, a
 // power of two, zeros beyond C) and runs the LayerNorm alone: no shuffles,
 // no idle lanes, and each thread writes its C contiguous outputs beside its
@@ -67,11 +104,11 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxChannels = 1024;
 constexpr int kSmallCLimit = 32;  // C < kSmallCLimit takes the small-C kernel
 constexpr int kTile = 16;         // small-C output tile: kTile x kTile pixels
 constexpr int kHalo = kTile + 6;  // its input tile side (zero pad 3 each way)
+constexpr int kMinBlocks = 256;   // tile kernel: take a smaller tile below this
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -85,115 +122,357 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Channels c, c+1 at p (4-byte aligned for bf16, 8 for fp32), widened.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);  // c in the low half
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int NK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-convnext_front_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                      const T* __restrict__ bias, const T* __restrict__ cond,
-                      const T* __restrict__ gamma, const T* __restrict__ beta,
-                      T* __restrict__ out, int H, int W, int C, int64_t npix,
-                      int norm, float eps) {
+// 16 bytes global -> shared, asynchronous; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct TileArgs {
+  const void *x, *w, *bias, *cond, *gamma, *beta;
+  void* out;
+  int H, W, C, norm;
+  float eps;
+  int vec;   // C fills 16-byte units and x, out are 16-byte aligned
+  int wvec;  // w is 16-byte aligned
+};
+
+// A tile kernel configuration: runs of R outputs along W, NIT chunks of CK
+// channels, a TH x TW output tile; a thread for each of the (TH * TW / R)
+// runs and CK / 2 channel pairs, 32 accumulators each.
+template <int R_, int NIT_, int CK_, int TH_, int TW_>
+struct TileCfg {
+  static constexpr int R = R_, NIT = NIT_, CK = CK_, TH = TH_, TW = TW_;
+  static constexpr int HW = TW + 6;               // halo row length
+  static constexpr int GK = CK / 2;               // threads per run
+  static constexpr int CAP = NIT * CK;            // channels a block holds
+  static constexpr int WP = CK + 2;               // shared weight row pitch
+  static constexpr int HALO = (TH + 6) * HW * CK;  // halo elements of a chunk
+  // the halo buffer also holds the staged outputs [TH*TW][CAP]
+  static constexpr int XS = HALO > TH * TW * CAP ? HALO : TH * TW * CAP;
+  static_assert(TW % R == 0 && XS % 8 == 0, "tile shape");
+  static constexpr int THREADS = (TH * TW / R) * GK;  // one per run and channel pair
+  static constexpr int MIN_BLOCKS = THREADS > 256 ? 1 : 2;
+  static constexpr int RED = THREADS / 32 * R;        // partial sums of one pass
+  template <typename T>
+  static constexpr int smem_bytes() {
+    return (int)sizeof(T) * XS + (int)sizeof(float) * (49 * WP + 3 * CAP + 2 * RED);
+  }
+};
+using TileC64 = TileCfg<16, 1, 64, 8, 16>;
+using TileC128 = TileCfg<8, 2, 64, 8, 8>;
+using TileC256 = TileCfg<8, 2, 128, 4, 8>;
+using TileC512 = TileCfg<4, 4, 128, 4, 4>;
+using TileC1024 = TileCfg<4, 4, 256, 4, 4>;
+
+// One reduce-scatter step per level: with N partial sums a lane keeps N/2,
+// the upper half where its lane bit o is set, and adds its partner's.
+template <int N, int R>
+__device__ __forceinline__ void reduce_scatter(float (&t)[R], int lane) {
+  if constexpr (N > 1) {
+    constexpr int h = N / 2, o = 16 * N / R;
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? t[i] : t[i + h], keep = up ? t[i + h] : t[i];
+      t[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    reduce_scatter<h, R>(t, lane);
+  }
+}
+
+// Sums v[r] over the GK threads of each run (a run's threads are GK
+// consecutive ones: GK / 32 whole warps, or one); red holds THREADS / 32 * R
+// floats.  Within a warp a reduce-scatter (R - 1 shuffles, not 5R) leaves
+// lane l with the total of value l >> S; R shuffles hand every lane all R.
+template <int R, int GK>
+__device__ __forceinline__ void run_sum(float (&v)[R], float* red) {
+  constexpr int S = R == 16 ? 1 : R == 8 ? 2 : R == 4 ? 3 : -1;  // 5 - log2(R)
+  static_assert(S > 0, "R is 4, 8 or 16");
   const int lane = threadIdx.x & 31;
-  const int64_t pix = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (pix >= npix) return;  // pix is uniform across the warp
-  const int px = (int)(pix % W);
-  const int py = (int)((pix / W) % H);
-  const int64_t b = pix / ((int64_t)W * H);
-
-  float acc[NK];
+  float t[R];
 #pragma unroll
-  for (int k = 0; k < NK; ++k) acc[k] = 0.f;
-
-  for (int dy = 0; dy < 7; ++dy) {
-    const int yy = py + dy - 3;
-    if (yy < 0 || yy >= H) continue;  // zero padding (warp-uniform branch)
-    for (int dx = 0; dx < 7; ++dx) {
-      const int xx = px + dx - 3;
-      if (xx < 0 || xx >= W) continue;
-      const T* xp = x + ((b * H + yy) * W + xx) * C;
-      const T* wp = wt + (dy * 7 + dx) * C;
+  for (int r = 0; r < R; ++r) t[r] = v[r];
+  reduce_scatter<R, R>(t, lane);
 #pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        const int c = lane + 32 * k;
-        if (c < C) acc[k] = fmaf(to_f32(xp[c]), to_f32(wp[c]), acc[k]);
-      }
+  for (int o = (1 << S) >> 1; o > 0; o >>= 1) t[0] += __shfl_xor_sync(0xffffffffu, t[0], o);
+  if constexpr (GK > 32) {
+    constexpr int nw = GK / 32;
+    const int run = threadIdx.x / GK, wr = (threadIdx.x % GK) / 32;
+    float* rr = red + run * R * nw;
+    if ((lane & ((1 << S) - 1)) == 0) rr[(lane >> S) * nw + wr] = t[0];
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < nw; ++i) s += rr[r * nw + i];
+      v[r] = s;
     }
-  }
-
+  } else {
 #pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      float add = to_f32(bias[c]);
-      if (cond != nullptr) add += to_f32(cond[b * C + c]);
-      acc[k] += add;
-    }
-  }
-
-  if (norm) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      if (lane + 32 * k < C) s += acc[k];
-    }
-    const float mean = warp_sum(s) / (float)C;
-    float v = 0.f;
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      if (lane + 32 * k < C) {
-        const float d = acc[k] - mean;
-        v += d * d;
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(v) / (float)C + eps);
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const int c = lane + 32 * k;
-      if (c < C) acc[k] = (acc[k] - mean) * rstd * to_f32(gamma[c]) + to_f32(beta[c]);
-    }
-  }
-
-  T* op = out + pix * C;
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) op[c] = from_f32<T>(acc[k]);
+    for (int r = 0; r < R; ++r) v[r] = __shfl_sync(0xffffffffu, t[0], r << S);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* wt, const void* bias, const void* cond,
-                   const void* gamma, const void* beta, void* out, int B, int H,
-                   int W, int C, int norm, float eps, cudaStream_t stream) {
-  const int64_t npix = (int64_t)B * H * W;
-  const int64_t blocks = (npix + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
-  const int nk = (C + 31) / 32;
-#define COLDDIFF_FRONT_LAUNCH(N)                                                  \
-  convnext_front_kernel<T, N><<<grid, block, 0, stream>>>(                        \
-      (const T*)x, (const T*)wt, (const T*)bias, (const T*)cond, (const T*)gamma, \
-      (const T*)beta, (T*)out, H, W, C, npix, norm, eps)
-  if (nk <= 1) {
-    COLDDIFF_FRONT_LAUNCH(1);
-  } else if (nk <= 2) {
-    COLDDIFF_FRONT_LAUNCH(2);
-  } else if (nk <= 4) {
-    COLDDIFF_FRONT_LAUNCH(4);
-  } else if (nk <= 8) {
-    COLDDIFF_FRONT_LAUNCH(8);
-  } else if (nk <= 16) {
-    COLDDIFF_FRONT_LAUNCH(16);
-  } else {
-    COLDDIFF_FRONT_LAUNCH(32);
+template <typename T, typename Cfg>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
+convnext_front_tile_kernel(const TileArgs a) {
+  constexpr int R = Cfg::R, NIT = Cfg::NIT, CK = Cfg::CK, TH = Cfg::TH, TW = Cfg::TW;
+  constexpr int NT = Cfg::THREADS;
+  constexpr int HW = Cfg::HW, GK = Cfg::GK, CAP = Cfg::CAP, WP = Cfg::WP;
+  constexpr int U = 16 / sizeof(T);  // elements per 16-byte unit
+  extern __shared__ float4 smem4[];
+  T* xs = reinterpret_cast<T*>(smem4);  // [(TH+6)*(TW+6)][CK], later [TH*TW][CAP]
+  float* ws = reinterpret_cast<float*>(xs + Cfg::XS);  // [49][WP], tap-major, fp32
+  float* vs = ws + 49 * WP;   // [3][CAP]: bias+cond, gamma, beta
+  float* red = vs + 3 * CAP;  // [2][THREADS/32*R]: LayerNorm partial sums
+  const int H = a.H, W = a.W, C = a.C;
+  const int nch = (C + CK - 1) / CK;  // chunks that hold channels (<= NIT)
+  const int tid = threadIdx.x;
+  const int g = tid % GK, run = tid / GK;
+  const int ty = run / (TW / R), tx0 = (run % (TW / R)) * R;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int64_t b = blockIdx.z;
+  const T* xb = static_cast<const T*>(a.x) + b * H * W * C;
+  const T* w = static_cast<const T*>(a.w);
+
+  for (int c = tid; c < CAP; c += NT) {
+    float add = 0.f, gm = 0.f, bt = 0.f;
+    if (c < C) {
+      add = to_f32(static_cast<const T*>(a.bias)[c]);
+      if (a.cond != nullptr) add += to_f32(static_cast<const T*>(a.cond)[b * C + c]);
+      if (a.norm) {
+        gm = to_f32(static_cast<const T*>(a.gamma)[c]);
+        bt = to_f32(static_cast<const T*>(a.beta)[c]);
+      }
+    }
+    vs[c] = add;
+    vs[CAP + c] = gm;
+    vs[2 * CAP + c] = bt;
   }
-#undef COLDDIFF_FRONT_LAUNCH
+
+  float2 acc[NIT][R];
+#pragma unroll
+  for (int j = 0; j < NIT; ++j) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r] = make_float2(0.f, 0.f);
+    if (j >= nch) continue;  // block-uniform
+    if (j > 0) __syncthreads();  // the previous chunk's reads of xs and ws are done
+    const int c0 = j * CK;
+    // the halo of channels c0 .. c0+CK-1, zeros outside the image and from C on
+    if (a.vec) {
+      constexpr int upp = CK / U, total = (TH + 6) * HW * upp;
+      for (int i = tid; i < total; i += NT) {
+        const int p = i / upp, u = i % upp;
+        const int yy = y0 - 3 + p / HW, xx = x0 - 3 + p % HW, c = c0 + u * U;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        cp_async16(xs + p * CK + u * U, in ? xb + ((int64_t)yy * W + xx) * C + c : xb,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < Cfg::HALO; i += NT) {
+        const int p = i / CK, c = c0 + i % CK;
+        const int yy = y0 - 3 + p / HW, xx = x0 - 3 + p % HW;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        xs[i] = in ? xb[((int64_t)yy * W + xx) * C + c] : from_f32<T>(0.f);
+      }
+    }
+    // the weights [C, 49]: this chunk's run of CK * 49, read coalesced (16
+    // bytes a load where w is aligned; the run starts at a multiple of 64
+    // channels), stored tap-major
+    const T* wc = w + c0 * 49;
+    const int nw = (C - c0 < CK ? C - c0 : CK) * 49;  // elements that exist
+    if (a.wvec) {
+      for (int i = tid * U; i < CK * 49; i += NT * U) {
+        union {
+          float4 f4;
+          T e[U];
+        } v;
+        if (i + U <= nw) {
+          v.f4 = *reinterpret_cast<const float4*>(wc + i);
+        } else {
+#pragma unroll
+          for (int e = 0; e < U; ++e) v.e[e] = i + e < nw ? wc[i + e] : from_f32<T>(0.f);
+        }
+        int cl = i / 49, tap = i % 49;
+#pragma unroll
+        for (int e = 0; e < U; ++e) {
+          ws[tap * WP + cl] = to_f32(v.e[e]);
+          if (++tap == 49) {
+            tap = 0;
+            ++cl;
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < CK * 49; i += NT)
+        ws[(i % 49) * WP + i / 49] = i < nw ? to_f32(wc[i]) : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const T* xr0 = xs + (ty * HW + tx0) * CK + 2 * g;
+    const float* wr0 = ws + 2 * g;
+#pragma unroll
+    for (int dy = 0; dy < 7; ++dy) {
+      float2 wv[7];
+#pragma unroll
+      for (int dx = 0; dx < 7; ++dx) wv[dx] = load2(wr0 + (dy * 7 + dx) * WP);
+      const T* xr = xr0 + dy * HW * CK;
+#pragma unroll
+      for (int k = 0; k < R + 6; ++k) {
+        const float2 xv = load2(xr + k * CK);
+#pragma unroll
+        for (int dx = 0; dx < 7; ++dx) {
+          const int r = k - dx;
+          if (r >= 0 && r < R) {
+            acc[j][r].x = fmaf(xv.x, wv[dx].x, acc[j][r].x);
+            acc[j][r].y = fmaf(xv.y, wv[dx].y, acc[j][r].y);
+          }
+        }
+      }
+    }
+  }
+
+  // + bias + cond; channels from C on hold 0 (zero x, weights and vectors)
+  float part[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) part[r] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NIT; ++j) {
+    const float2 add = make_float2(vs[j * CK + 2 * g], vs[j * CK + 2 * g + 1]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[j][r].x += add.x;
+      acc[j][r].y += add.y;
+      part[r] += acc[j][r].x + acc[j][r].y;
+    }
+  }
+  if (a.norm) {  // block-uniform
+    run_sum<R, GK>(part, red);
+    float mean[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mean[r] = part[r] / (float)C;
+      part[r] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NIT; ++j) {
+      const int c = j * CK + 2 * g;
+      const float m0 = c < C ? 1.f : 0.f, m1 = c + 1 < C ? 1.f : 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float d0 = (acc[j][r].x - mean[r]) * m0, d1 = (acc[j][r].y - mean[r]) * m1;
+        part[r] = fmaf(d0, d0, fmaf(d1, d1, part[r]));
+      }
+    }
+    run_sum<R, GK>(part, red + Cfg::RED);
+#pragma unroll
+    for (int r = 0; r < R; ++r) part[r] = rsqrtf(part[r] / (float)C + a.eps);
+#pragma unroll
+    for (int j = 0; j < NIT; ++j) {
+      const int c = j * CK + 2 * g;
+      const float g0 = vs[CAP + c], g1 = vs[CAP + c + 1];
+      const float b0 = vs[2 * CAP + c], b1 = vs[2 * CAP + c + 1];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[j][r].x = (acc[j][r].x - mean[r]) * part[r] * g0 + b0;
+        acc[j][r].y = (acc[j][r].y - mean[r]) * part[r] * g1 + b1;
+      }
+    }
+  }
+
+  // stage the rounded outputs [TH*TW][CAP] in the halo buffer, then store
+  // each in-image pixel's C outputs
+  __syncthreads();  // every thread's reads of the last halo are done
+#pragma unroll
+  for (int j = 0; j < NIT; ++j) {
+    if (j >= nch) continue;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      store2(xs + (run * R + r) * CAP + j * CK + 2 * g, acc[j][r].x, acc[j][r].y);
+  }
+  __syncthreads();
+  T* ob = static_cast<T*>(a.out) + b * H * W * C;
+  if (a.vec) {
+    const int upp = C / U, total = TH * TW * upp;
+    for (int i = tid; i < total; i += NT) {
+      const int p = i / upp, u = i - p * upp;
+      const int py = y0 + p / TW, px = x0 + p % TW;
+      if (py < H && px < W)
+        *reinterpret_cast<float4*>(ob + ((int64_t)py * W + px) * C + u * U) =
+            *reinterpret_cast<const float4*>(xs + p * CAP + u * U);
+    }
+  } else {
+    const int total = TH * TW * C;
+    for (int i = tid; i < total; i += NT) {
+      const int p = i / C, c = i - p * C;
+      const int py = y0 + p / TW, px = x0 + p % TW;
+      if (py < H && px < W) ob[((int64_t)py * W + px) * C + c] = xs[p * CAP + c];
+    }
+  }
+}
+
+template <typename T, typename Cfg>
+cudaError_t launch_tile_cfg(const TileArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = Cfg::template smem_bytes<T>();
+  const auto kernel = convnext_front_tile_kernel<T, Cfg>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((a.W + Cfg::TW - 1) / Cfg::TW, (a.H + Cfg::TH - 1) / Cfg::TH, B);
+  kernel<<<grid, Cfg::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Blocks of a TH x TW tile over the batch.
+template <typename Cfg>
+int64_t tile_blocks(int B, int H, int W) {
+  return (int64_t)((W + Cfg::TW - 1) / Cfg::TW) * ((H + Cfg::TH - 1) / Cfg::TH) * B;
+}
+
+// 32 <= C <= kMaxChannels; w is [C, 49], the torch layout.  Takes the first
+// configuration that holds C and gives at least kMinBlocks blocks (or the
+// last).
+template <typename T>
+cudaError_t launch_tile(TileArgs a, int B, cudaStream_t stream) {
+  if (B > 65535 || a.H > 65535) return cudaErrorInvalidValue;
+  a.vec = a.C % (16 / (int)sizeof(T)) == 0 &&
+          ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.out)) % 16) == 0;
+  a.wvec = reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+  const int C = a.C, H = a.H, W = a.W;
+  if (C <= TileC64::CAP && tile_blocks<TileC64>(B, H, W) >= kMinBlocks)
+    return launch_tile_cfg<T, TileC64>(a, B, stream);
+  if (C <= TileC128::CAP && tile_blocks<TileC128>(B, H, W) >= kMinBlocks)
+    return launch_tile_cfg<T, TileC128>(a, B, stream);
+  if (C <= TileC256::CAP && tile_blocks<TileC256>(B, H, W) >= kMinBlocks)
+    return launch_tile_cfg<T, TileC256>(a, B, stream);
+  if (C <= TileC512::CAP && tile_blocks<TileC512>(B, H, W) >= kMinBlocks)
+    return launch_tile_cfg<T, TileC512>(a, B, stream);
+  return launch_tile_cfg<T, TileC1024>(a, B, stream);
 }
 
 // Shared floats of the small-C kernel: the halo tile [kHalo*kHalo][CP], the
@@ -384,10 +663,10 @@ cudaError_t launch_small_c(const void* x, const void* w, const void* bias, const
 }  // namespace
 
 // C entry point, bound with ctypes by colddiff_torch/ops/convnext_front.py.
-// x, out: [B,H,W,C] (NHWC memory); bias, gamma, beta: [C]; cond: [B,C] or
-// NULL; gamma/beta are read only when norm != 0.  The kernel follows C:
-// C < 32 launches the small-C kernel and takes w as [C,49] (the torch
-// layout); C >= 32 launches the warp kernel and takes w as [49,C].
+// x, out: [B,H,W,C] (NHWC memory); w: [C,49] (the torch layout [C,1,7,7]);
+// bias, gamma, beta: [C]; cond: [B,C] or NULL; gamma/beta are read only
+// when norm != 0.  The kernel follows C: C < 32 launches the small-C
+// kernel, C >= 32 the tile kernel.
 // dtype: 0 = float32, 1 = bfloat16 (all tensors share it).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int colddiff_convnext_front(const void* x, const void* w, const void* bias,
@@ -407,10 +686,8 @@ extern "C" int colddiff_convnext_front(const void* x, const void* w, const void*
                                                 W, C, norm, eps, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 0)
-    return (int)launch<float>(x, w, bias, cond, gamma, beta, out, B, H, W, C, norm, eps, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w, bias, cond, gamma, beta, out, B, H, W, C,
-                                      norm, eps, s);
+  const TileArgs a{x, w, bias, cond, gamma, beta, out, H, W, C, norm, eps, 0, 0};
+  if (dtype == 0) return (int)launch_tile<float>(a, B, s);
+  if (dtype == 1) return (int)launch_tile<__nv_bfloat16>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

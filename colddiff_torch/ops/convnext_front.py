@@ -15,11 +15,16 @@ inputs and round the output once.
 
 - C < 32 (``SMALL_C``; the C=3 stem, C=1, narrow test UNets): the small-C
   kernel, one thread per output pixel holding all C channels, over a 16x16
-  output tile whose input halo sits in shared memory.  It takes the weights
-  in their torch layout [C, 49], so the call copies nothing.
-- C >= 32, up to 1024: the warp kernel, one warp per output pixel with
-  lanes over channels; it takes the weights tap-major [49, C], a copy made
-  per call.
+  output tile whose input halo sits in shared memory.
+- C >= 32, up to 1024: the tile kernel.  A block owns a spatial tile of one
+  image (8x16 pixels at C <= 64 down to 4x4 above C = 256) and all C
+  channels; each channel chunk's input halo is staged in shared memory,
+  and each thread slides a register window over W for one channel pair,
+  so the LayerNorm closes inside the block.
+
+Both take the weights in their torch layout [C, 49], so a call whose w is
+already contiguous in the compute dtype copies nothing: the kernel reads
+``w``'s own storage.
 
 So all 17 block fronts of the flagship UNet run through a kernel (the TPU
 kernel took only C | 128 with C < 128).
@@ -47,7 +52,7 @@ from . import _build
 
 __all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS", "SMALL_C"]
 
-MAX_CHANNELS = 1024  # the warp kernel holds ceil(C/32) <= 32 channels per lane
+MAX_CHANNELS = 1024  # the tile kernel's largest channel count (kMaxChannels)
 SMALL_C = 32  # C < SMALL_C launches the small-C kernel (kSmallCLimit in the .cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,9 +123,7 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     x = x.to(dt)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("convnext_front kernel needs x in torch.channels_last memory")
-    small = c < SMALL_C
-    wk = w.reshape(c, 49)  # the small-C kernel takes the torch layout [C, 49]
-    wk = (wk if small else wk.t()).to(dt).contiguous()  # the warp kernel: [49, C]
+    wk = w.reshape(c, 49).to(dt).contiguous()  # a view of w's storage when it is dt
     b = b.to(dt).contiguous()
     if cond is not None:
         cond = cond.to(dt).contiguous()
@@ -138,7 +141,7 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"convnext_front kernel launch failed: cudaError {err}")
     convnext_front.launches += 1
-    if small:
+    if c < SMALL_C:
         convnext_front.small_c_launches += 1
     return out
 

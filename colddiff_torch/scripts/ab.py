@@ -11,11 +11,14 @@ run in the order given, one child process each, which imports that root's
 turns (``parent change change parent``) to see the spread between runs.
 Each child prints one JSON line per measurement:
 
-- ``fronts``: the block-front kernel at (16, 128, 128, C) for the stem
-  (C=3, ``norm=False``) and C = 8, 16, 31 (``norm=True``), all with
-  conditioning, fp32 and bf16: its max error against the plain version and
-  three device-time runs of ``chip_smoke.device_ms`` (so the root's
-  ``chip_smoke.py`` must have it);
+- ``fronts``: the block-front kernels at (16, H, H, C), all with
+  conditioning, fp32 and bf16: the small-C kernel at 128 px for the stem
+  (C=3, ``norm=False``) and C = 8, 16, 31, and the tile kernel at the
+  flagship's C >= 32 shapes (C, H) = (64, 128), (64, 64), (128, 64),
+  (256, 64), (256, 32), (512, 32), (512, 16), (1024, 16) (``norm=True``);
+  for each, its max error against the plain version and three device-time
+  runs of ``chip_smoke.device_ms`` (so the root's ``chip_smoke.py`` must
+  have it);
 - ``main``: sampled images/s of ``chip_smoke.main_path`` (phase 6) and train
   images/s of ``chip_smoke.train_main_path`` (phase 8, loader included);
 - ``sample``: sampled images/s of three ``chip_smoke.main_path`` runs in a
@@ -34,7 +37,9 @@ import sys
 from pathlib import Path
 
 MODES = ("fronts", "main", "sample")
-FRONTS = ((3, False), (8, True), (16, True), (31, True))  # (C, norm)
+FRONTS = ((3, 128, False), (8, 128, True), (16, 128, True), (31, 128, True),  # (C, H, norm)
+          (64, 128, True), (64, 64, True), (128, 64, True), (256, 64, True), (256, 32, True),
+          (512, 32, True), (512, 16, True), (1024, 16, True))
 
 
 def _fronts(cs, dev) -> None:
@@ -42,11 +47,11 @@ def _fronts(cs, dev) -> None:
     from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    for c, norm in FRONTS:
-        args = cs.front_args(gen, cs.BATCH, c, cs.IMG, cs.IMG, True, dev)
+    for c, h, norm in FRONTS:
+        args = cs.front_args(gen, cs.BATCH, c, h, h, True, dev)
         a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
         a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
-        row = {"C": c, "norm": norm}
+        row = {"C": c, "H": h, "norm": norm}
         for tag, a in (("fp32", args), ("bf16", a16)):
             got = convnext_front(*a, norm=norm).float()
             want = convnext_front_plain(*[None if t is None else t.float() for t in a],

@@ -77,8 +77,26 @@ def test_plain_matches_reference_and_interpret(rng, shape, norm, with_cond):
         np.testing.assert_allclose(got, interp, rtol=3e-5, atol=3e-5)
 
 
+# the tile kernel's edge cases on the card (tests/test_torch_cuda.py): C not
+# dividing 128, a tile cut by the edge, H and W below 7; against the
+# reference alone, as above
+EDGE_CASES = [(shape, norm, cond)
+              for shape in [(2, 9, 11, 33), (2, 9, 11, 48), (2, 9, 11, 100), (1, 5, 3, 64),
+                            (2, 17, 33, 128)]
+              for norm in (True, False) for cond in (True, False)]
+
+
 @pytest.mark.parametrize("shape,norm,with_cond", SMALL_C_CASES)
 def test_plain_matches_reference_at_small_c(rng, shape, norm, with_cond):
+    _check_against_reference(rng, shape, norm, with_cond)
+
+
+@pytest.mark.parametrize("shape,norm,with_cond", EDGE_CASES)
+def test_plain_matches_reference_at_tile_kernel_edges(rng, shape, norm, with_cond):
+    _check_against_reference(rng, shape, norm, with_cond)
+
+
+def _check_against_reference(rng, shape, norm, with_cond):
     b, h, w, c = shape
     x = rng.standard_normal(shape).astype(np.float32)
     wk, bias, cond, gamma, beta = _args(rng, b, c)

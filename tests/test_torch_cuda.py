@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from colddiff_torch.models import UnetConvNext
+from colddiff_torch.ops import convnext_front as front_mod
 from colddiff_torch.ops.convnext_front import SMALL_C, convnext_front, convnext_front_plain
 
 
@@ -33,9 +34,9 @@ def _front_args(gen, b, c, h, w, with_cond, dtype, device):
     return x, randn(c, 1, 7, 7, scale=0.05), randn(c, scale=0.1), cond, gamma, randn(c, scale=0.1)
 
 
-# the warp kernel (C >= 32, C=32 its smallest) and the small-C kernel, the
-# latter at every padded width (1, 2, 4, 8, 16, 32 channels) with C at and
-# between them, on tiles cut by the image edge (9x11, 130x7) and at the stem
+# the tile kernel (C >= 32) and the small-C kernel, the latter at every
+# padded width (1, 2, 4, 8, 16, 32 channels) with C at and between them, on
+# tiles cut by the image edge (9x11, 130x7) and at the stem
 FRONT_CASES = [(2, 64, 32, 32, True, True), (2, 3, 16, 16, False, True),
                (1, 1024, 8, 8, True, True), (2, 96, 9, 11, True, False),
                (1, 1, 5, 3, True, True), (2, 32, 9, 11, True, True)]
@@ -44,6 +45,20 @@ FRONT_CASES += [(b, c, h, w, norm, with_cond) for c in (1, 2, 3, 4, 5, 8, 16, 17
                 for norm in (True, False) for with_cond in (True, False)]
 FRONT_CASES += [(3, 3, 128, 128, norm, with_cond)
                 for norm in (True, False) for with_cond in (True, False)]
+# the tile kernel's edges: C at each tile configuration's bound and between,
+# C not a multiple of the 16-byte unit (33, 100 in bf16), tiles cut by the
+# image edge, H or W below 7, B = 1 and 3
+FRONT_CASES += [(b, c, h, w, norm, with_cond)
+                for c in (32, 33, 48, 64, 100, 128, 256, 512, 1024)
+                for h, w in ((9, 11), (130, 7), (17, 33), (5, 3), (1, 1))
+                for b, norm, with_cond in ((1, True, True), (3, True, False),
+                                           (1, False, True), (3, False, False))]
+# images big enough that each tile configuration keeps its own tile (the
+# kernel takes a smaller tile when the grid would have < 256 blocks), cut by
+# the edge on both axes (37 x 70)
+FRONT_CASES += [(b, c, 37, 70, norm, norm) for b, c in
+                ((16, 33), (16, 64), (8, 100), (8, 128), (4, 200), (4, 256), (2, 300),
+                 (2, 512)) for norm in (True, False)]
 
 
 @pytest.mark.cuda
@@ -62,6 +77,23 @@ def test_kernel_matches_plain(cuda, dtype, b, c, h, w, norm, with_cond):
     # fp32: summation order only; bf16: one rounding of outputs up to ~4
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])
+def test_kernel_reads_the_weights_own_storage(cuda, monkeypatch, c):
+    """A CUDA call passes w's own storage: the wrapper makes no weight copy."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = _front_args(gen, 2, c, 16, 16, True, torch.bfloat16, cuda)
+    kernel, seen = front_mod._kernel(), []
+
+    def spy(*a):
+        seen.append(a[1])
+        return kernel(*a)
+
+    monkeypatch.setattr(front_mod, "_kernel", lambda: spy)
+    convnext_front(*args)
+    assert seen == [args[1].data_ptr()]
 
 
 @pytest.mark.cuda

@@ -32,7 +32,37 @@ checks it, in phases:
      trip;
   9. the four Mosaic probe kernels of scripts/bisect_mosaic.py, through
      their entry point, against their plain versions, with device times
-     over a run, bounds and, where one exists, a library call's time.
+     over a run, bounds and, where one exists, a library call's time; and
+     the launch floor, an empty ``torch.cuda._sleep(0)`` timed the same way;
+ 10. the wide-C front (C > 1024): the kernels against their plain version at
+     (16,16,16,1280), (16,16,16,2048) and (2,8,8,4096), fp32 and bf16; the
+     (16,16,16,1280) row timed as in phase 3; a ``UnetConvNext(dim=80)``
+     fp32 forward at 128 px on the GPU vs on the CPU (its ups.0.0 front has
+     1280 channels), with the launch counts;
+ 11-15. the reference's other published workflows (docs/USAGE.md:62-84),
+     each with the flagship UNet (random seeded weights, bf16 compute, fp32
+     degrade math, B=16): prepare_start + sample timed (images/s, peak
+     memory) with the front launch counts checked (17 a forward, the stem
+     through the small-C kernel), after an oracle check of the operator on
+     the card (a perfect denoiser gives back the clean batch) and its
+     degrade against its CPU run:
+     11. conditional fade, CelebA-128: ``fade`` Incremental, kernel_std 0.2,
+         T=100, x0_step_down;
+     12. super-resolution, 128 px: ``resolution`` Incremental_factor_2, T=4;
+     13. colorization, 128 px: ``decolor`` Linear, total remove, T=20, with
+         ``to_lab`` off and on;
+     14. fade generation, 128 px: ``fade_generation`` reverse, kernel_std
+         0.05, T=750, endpoints from ``sample_x_end``; sampled with
+         x0_step_down (a fixed endpoint) and with ddim, then 3
+         ``Trainer.train()`` steps (accum 2) whose last takes the snapshot;
+     15. Random_Incremental fade, CIFAR-10 32 px: kernel_std 0.1,
+         initial_mask 1, T=50; 5 ``Trainer.train()`` steps with crops drawn
+         per loss, the baked crop offsets checked unchanged, then a sample
+         that keeps them;
+ 16. ``all_sample`` on the flagship blur path (T=200, 128 px, B=16,
+     traj_stride 10): frame 0 of x0_trajectory is direct_recons, the last
+     xt_trajectory frame sampled on for the last 10 steps gives the final
+     image; peak memory.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -50,7 +80,9 @@ kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -70,8 +102,10 @@ from colddiff_torch.models.layers import ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
-from colddiff_torch.ops.convnext_front import SMALL_C, convnext_front, convnext_front_plain
-from colddiff_torch.sampling import prepare_start, sample
+from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, convnext_front,
+                                              convnext_front_plain)
+from colddiff_torch.ops.image import rgb2lab
+from colddiff_torch.sampling import all_sample, prepare_start, sample
 from colddiff_torch.scripts import bisect_mosaic as probe_script
 from colddiff_torch.train import Trainer
 
@@ -89,6 +123,10 @@ TRAIN_GRAD_REL_L2 = 1e-3  # cuDNN vs oneDNN summation orders, as in phase 4
 TRAIN_STEPS = 10
 ACCUM = 2
 PROBE_ATOL = 1e-5  # fp32 summation order of the two sums
+WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096))  # (B, H, W, C)
+WIDE_DIM = 80  # UnetConvNext(dim=80): a 16 * 80 = 1280-channel front at ups.0.0
+DEGRADE_REL = 1e-5  # an operator's degrade on the card vs the CPU, relative to max |y|
+TRAJ_STRIDE = 10
 RUN = 50  # launches per device-time run of a kernel or a library call
 PLAIN_RUN = 20  # calls per run of a plain version (~12 launches each)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -232,6 +270,46 @@ def timed_row(row, key, fn, n: int = RUN) -> None:
         row.setdefault("host_paced", []).append(key)
 
 
+def check_front(args, norm: bool, what: str):
+    """The kernel against the plain version on ``args`` in fp32, and on
+    their bf16 roundings against the plain version in fp32; returns the
+    bf16 arguments and both max errors."""
+    got = convnext_front(*args, norm=norm)
+    want = convnext_front_plain(*args, norm=norm)
+    err32 = (got - want).abs().max().item()
+    if not err32 <= FRONT_FP32_ATOL:
+        raise AssertionError(f"fp32 front {what}: max err {err32}")
+    a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
+    a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
+    got16 = convnext_front(*a16, norm=norm).float()
+    want16 = convnext_front_plain(*[None if a is None else a.float() for a in a16], norm=norm)
+    excess = ((got16 - want16).abs() - FRONT_BF16_TOL * want16.abs()).max().item()
+    if not excess <= FRONT_BF16_TOL:
+        raise AssertionError(f"bf16 front {what}: |err| - rtol*|want| = {excess}")
+    return a16, err32, (got16 - want16).abs().max().item()
+
+
+def time_front(row, args, a16, batch, h, w, c, norm, has_cond) -> None:
+    """Phase 3's timings of one front into ``row``, fp32 and bf16."""
+    for tag, a in (("fp32", args), ("bf16", a16)):
+        bound_ms, row["bound_by_" + tag] = front_bound(
+            batch, h, w, c, has_cond, norm, a[0].element_size())
+        row[f"bound_us_{tag}"] = 1e3 * bound_ms
+        row[f"l2_{tag}"] = ("warm" if 2 * a[0].numel() * a[0].element_size() <= L2_BYTES
+                            else "exceeds")
+        timed_row(row, f"ms_{tag}", lambda: convnext_front(*a, norm=norm))
+        row[f"bound_share_{tag}"] = bound_ms / row[f"ms_{tag}"]
+        row[f"call_ms_{tag}"] = cuda_median_ms(lambda: convnext_front(*a, norm=norm))
+        timed_row(row, f"plain_ms_{tag}",
+                  lambda: convnext_front_plain(*a, norm=norm), PLAIN_RUN)
+        timed_row(row, f"library_ms_{tag}",
+                  lambda: F.conv2d(a[0], a[1], a[2], padding=3, groups=c))
+
+
+def kernel_label(c: int) -> str:
+    return "small_c" if c < SMALL_C else "tile" if c <= TILE_MAX_CHANNELS else "wide_c"
+
+
 def check_fronts(shapes, batch: int, device, timed: bool):
     """Phase 3: kernel vs plain at every block front, fp32 and bf16; with
     ``timed``, each front's device, call, plain and library times and its
@@ -241,43 +319,17 @@ def check_fronts(shapes, batch: int, device, timed: bool):
     rows, worst32, worst16 = [], 0.0, 0.0
     for front, c, h, w, norm, has_cond in shapes:
         args = front_args(gen, batch, c, h, w, has_cond, device)
-        x, wk, bias, cond, gamma, beta = args
-        got = convnext_front(*args, norm=norm)
-        want = convnext_front_plain(*args, norm=norm)
-        err32 = (got - want).abs().max().item()
-        if not err32 <= FRONT_FP32_ATOL:
-            raise AssertionError(f"fp32 front C={c} {h}x{w}: max err {err32}")
         # bf16: the kernel on bf16 tensors vs the plain version in fp32 on
         # the same bf16-rounded inputs and weights
-        a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
-        a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
-        got16 = convnext_front(*a16, norm=norm).float()
-        want16 = convnext_front_plain(*[None if a is None else a.float() for a in a16],
-                                      norm=norm)
-        excess = ((got16 - want16).abs() - FRONT_BF16_TOL * want16.abs()).max().item()
-        if not excess <= FRONT_BF16_TOL:
-            raise AssertionError(f"bf16 front C={c} {h}x{w}: |err| - rtol*|want| = {excess}")
-        err16 = (got16 - want16).abs().max().item()
+        a16, err32, err16 = check_front(args, norm, f"C={c} {h}x{w}")
         worst32, worst16 = max(worst32, err32), max(worst16, err16)
         n = per_forward[(c, h, w, norm, has_cond)]
         row = dict(front=front, shape=[batch, h, w, c], norm=norm, cond=has_cond,
-                   kernel="small_c" if c < SMALL_C else "tile", launches_per_forward=n,
+                   kernel=kernel_label(c), launches_per_forward=n,
                    launches_per_train_step=n * ACCUM, max_abs_err_fp32=err32,
                    max_abs_err_bf16=err16)
         if timed:
-            for tag, a in (("fp32", args), ("bf16", a16)):
-                bound_ms, row["bound_by_" + tag] = front_bound(
-                    batch, h, w, c, has_cond, norm, a[0].element_size())
-                row[f"bound_us_{tag}"] = 1e3 * bound_ms
-                row[f"l2_{tag}"] = ("warm" if 2 * a[0].numel() * a[0].element_size() <= L2_BYTES
-                                    else "exceeds")
-                timed_row(row, f"ms_{tag}", lambda: convnext_front(*a, norm=norm))
-                row[f"bound_share_{tag}"] = bound_ms / row[f"ms_{tag}"]
-                row[f"call_ms_{tag}"] = cuda_median_ms(lambda: convnext_front(*a, norm=norm))
-                timed_row(row, f"plain_ms_{tag}",
-                          lambda: convnext_front_plain(*a, norm=norm), PLAIN_RUN)
-                timed_row(row, f"library_ms_{tag}",
-                          lambda: F.conv2d(a[0], a[1], a[2], padding=3, groups=c))
+            time_front(row, args, a16, batch, h, w, c, norm, has_cond)
         rows.append(row)
         log("  front", json.dumps(row))
     return rows, worst32, worst16
@@ -308,15 +360,12 @@ def main_path(model: UnetConvNext, device, batch: int, size: int, timesteps: int
     d = ColdDiffusion(op=op, image_size=size, sampling_routine="x0_step_down")
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     img = torch.rand(batch, size, size, 3, generator=gen, device=device) * 2 - 1
-
-    def denoise(x, t):
-        return model(x.to(torch.bfloat16), t).to(torch.float32)
-
+    denoise = bf16_denoise(model)
     # warm-up: two reverse steps (first-call cuDNN and allocator set-up)
     sample(d, denoise, prepare_start(d, img), t=2)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    convnext_front.launches = convnext_front.small_c_launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = sample(d, denoise, prepare_start(d, img)).img
     torch.cuda.synchronize(device)
@@ -378,7 +427,7 @@ def train_main_path(device, folder: str):
     tr.train(log_every=1)  # warm-up: cuDNN and allocator set-up
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    convnext_front.launches = convnext_front.small_c_launches = 0
+    zero_launches()
     tr.train_num_steps = 1 + TRAIN_STEPS
     tr.train(log_every=1)
     launches, small = convnext_front.launches, convnext_front.small_c_launches
@@ -407,6 +456,278 @@ def train_main_path(device, folder: str):
                and all(torch.equal(v, b["opt"]["state"][i][name])
                        for i, st in a["opt"]["state"].items() for name, v in st.items()))
     return losses, step_s, launches, small, peak, snap_s, bitwise
+
+
+def wide_c_fronts(device, cpu_unet_input):
+    """Phase 10: the wide-C kernels against their plain version at
+    WIDE_SHAPES (cond and LayerNorm, as ups.0.0), a phase-3 row for the
+    first, and the dim=80 UNet on the GPU vs the CPU.  Returns (rows, worst
+    fp32 error, worst bf16 error, rel L2, launches, small-C launches, wide-C
+    launches)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    rows, worst32, worst16 = [], 0.0, 0.0
+    for i, (b, h, w, c) in enumerate(WIDE_SHAPES):
+        args = front_args(gen, b, c, h, w, True, device)
+        a16, err32, err16 = check_front(args, True, f"C={c} {h}x{w} B={b}")
+        worst32, worst16 = max(worst32, err32), max(worst16, err16)
+        row = dict(front="wide_c", shape=[b, h, w, c], norm=True, cond=True,
+                   kernel=kernel_label(c), max_abs_err_fp32=err32, max_abs_err_bf16=err16)
+        if i == 0:
+            time_front(row, args, a16, b, h, w, c, True, True)
+        rows.append(row)
+        log("  front", json.dumps(row))
+        del args, a16
+    cfg = dict(FLAGSHIP, dim=WIDE_DIM)
+    x, t = cpu_unet_input
+    want, shapes = record_fronts(seeded_unet(SEED, "cpu", **cfg), x, t)
+    if sum(f[1] > TILE_MAX_CHANNELS for f in shapes) != 1:
+        raise AssertionError(f"dim={WIDE_DIM} fronts: {shapes}")
+    model = seeded_unet(SEED, device, **cfg)
+    zero_launches()
+    with torch.inference_mode():
+        got = model(x.to(device), t.to(device))
+    torch.cuda.synchronize(device)
+    counts = launch_counts()
+    return rows, worst32, worst16, rel_l2(got, want), *counts
+
+
+def reset_peak(device) -> int:
+    """Free what earlier phases left (their Trainers' cycles), reset the
+    peak-memory count and return the bytes still allocated."""
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def zero_launches() -> None:
+    convnext_front.launches = convnext_front.small_c_launches = 0
+    convnext_front.wide_c_launches = 0
+
+
+def launch_counts():
+    """(all front launches, small-C, wide-C) since ``zero_launches``."""
+    return (convnext_front.launches, convnext_front.small_c_launches,
+            convnext_front.wide_c_launches)
+
+
+def bf16_denoise(model):
+    def denoise(x, t):
+        return model(x.to(torch.bfloat16), t).to(torch.float32)
+    return denoise
+
+
+def check_operator(d: ColdDiffusion, size: int, device, x_end_fn=None, lab=False):
+    """The operator of ``d`` on the card: its degrade at 9 or more levels
+    from 0 to T against its CPU copy (relative to max |y|), and the oracle -- with a
+    perfect denoiser, prepare_start + sample gives back the clean batch
+    (Algorithm 2 telescopes; Family B with its true endpoint).  Returns
+    (degrade rel err, oracle max err)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    clean = torch.rand(4, size, size, 3, generator=gen, device=device) * 2 - 1
+    if lab:
+        clean = rgb2lab(clean)
+    x_end = None if x_end_fn is None else x_end_fn(gen, clean)
+    op, cpu = d.op, d.op.to("cpu")
+    worst = 0.0
+    for level in sorted(set(range(0, op.timesteps + 1, max(1, op.timesteps // 8)))
+                        | {op.timesteps}):
+        n = torch.full((4,), level, device=device)
+        kw = {} if x_end is None else {"x_end": x_end}
+        got = op.degrade(clean, n, **kw)
+        want = cpu.degrade(clean.cpu(), n.cpu(), **{k: v.cpu() for k, v in kw.items()})
+        worst = max(worst, ((got.cpu() - want).abs().max() / want.abs().max()).item())
+    if not worst <= DEGRADE_REL:
+        raise AssertionError(f"{type(op).__name__} degrade cuda vs cpu: rel err {worst}")
+    res = sample(dataclasses.replace(d, sampling_routine="x0_step_down"),
+                 lambda x, t: clean, prepare_start(d, clean, x_end=x_end), x_end=x_end)
+    err = ((res.img - clean).abs().max() / clean.abs().max()).item()
+    if not err <= ORACLE_ATOL:
+        raise AssertionError(f"{type(op).__name__} oracle sampler: rel err {err}")
+    return worst, err
+
+
+def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end_fn=None,
+                lab=False):
+    """prepare_start + sample with the bf16 UNet, timed from a clean batch;
+    checks the output and the launch counts (17 fronts and one small-C
+    front a forward).  Returns a dict of the run's numbers."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    img = torch.rand(batch, size, size, 3, generator=gen, device=device) * 2 - 1
+    if lab:
+        img = rgb2lab(img)
+    x_end = None if x_end_fn is None else x_end_fn(gen, img)
+    denoise = bf16_denoise(model)
+    sample(d, denoise, prepare_start(d, img, 2, x_end=x_end), t=2, x_end=x_end)  # warm-up
+    base = reset_peak(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = sample(d, denoise, prepare_start(d, img, x_end=x_end), x_end=x_end).img
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches, small, wide = launch_counts()
+    steps = d.num_timesteps
+    if not (out.shape == img.shape and torch.isfinite(out).all().item()):
+        raise AssertionError(f"{type(d.op).__name__} sample: {out.shape}, not finite/shaped")
+    if (launches, small, wide) != (17 * steps, steps, 0):
+        raise AssertionError(f"{type(d.op).__name__} sample launched {launches} fronts, "
+                             f"{small} small-C, {wide} wide-C; expected {17 * steps}, "
+                             f"{steps}, 0")
+    return dict(op=type(d.op).__name__, routine=d.sampling_routine, T=steps, batch=batch,
+                size=size, seconds=seconds, images_per_s=batch / seconds,
+                peak_bytes=torch.cuda.max_memory_allocated(device), base_bytes=base,
+                launches=launches, small_c_launches=small)
+
+
+def workflows(model, device, card: str):
+    """Phases 11-14 (sampling): returns the result rows."""
+    def op(name, size, **cfg):
+        return get_operator(name, image_size=size, **cfg, device=device)
+
+    def x_end_fn(d):
+        return lambda gen, x: d.op.sample_x_end(gen, x)
+
+    fade = ColdDiffusion(op=op("fade", IMG, timesteps=100, fade_routine="Incremental",
+                               kernel_std=0.2), image_size=IMG,
+                         sampling_routine="x0_step_down")
+    sr = ColdDiffusion(op=op("resolution", IMG, timesteps=4,
+                             resolution_routine="Incremental_factor_2"),
+                       image_size=IMG, sampling_routine="x0_step_down")
+    decolor = {lab: ColdDiffusion(op=get_operator(
+        "decolor", timesteps=20, decolor_routine="Linear", decolor_total_remove=True,
+        to_lab=lab, device=device), image_size=IMG, sampling_routine="x0_step_down")
+        for lab in (False, True)}
+    gen_op = op("fade_generation", IMG, timesteps=750, reverse=True, kernel_std=0.05)
+    fgen = {r: ColdDiffusion(op=gen_op, image_size=IMG, sampling_routine=r)
+            for r in ("x0_step_down", "ddim")}
+    runs = [("11", fade, {}), ("12", sr, {}), ("13", decolor[False], {}),
+            ("13", decolor[True], dict(lab=True)),
+            ("14", fgen["x0_step_down"], dict(x_end_fn=x_end_fn(fgen["x0_step_down"]))),
+            ("14", fgen["ddim"], dict(x_end_fn=x_end_fn(fgen["ddim"])))]
+    rows = []
+    for phase, d, kw in runs:
+        deg, oracle = check_operator(d, IMG, device, **kw)
+        row = sample_path(d, model, device, BATCH, IMG, **kw)
+        row.update(phase=phase, to_lab=bool(kw.get("lab")), degrade_rel_err=deg,
+                   oracle_rel_err=oracle)
+        log(f"[{phase}] {row['op']} {row['routine']} T={row['T']} B={BATCH} {IMG}px"
+            f"{' to_lab' if row['to_lab'] else ''}: {row['seconds']:.3f} s, "
+            f"{row['images_per_s']:.3f} images/s, peak memory {row['peak_bytes']} bytes "
+            f"({row['peak_bytes'] / 2**30:.2f} GiB; {row['base_bytes']} allocated before "
+            f"the run), front launches {row['launches']}, of "
+            f"them small-C {row['small_c_launches']}; degrade cuda vs cpu rel err "
+            f"{deg:.3e}, oracle rel err {oracle:.3e}; card: {card}")
+        rows.append(row)
+    return rows
+
+
+def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
+                   snapshot: bool):
+    """``Trainer.train()`` at full width (B=16, accum 2, bf16) for one
+    warm-up step and ``steps`` more, the last with the checkpoint and the EMA
+    sample grids when ``snapshot``; checks the losses and the launch counts
+    (17 fronts a microbatch forward, plus 17 a reverse step of the
+    snapshot).  Returns (trainer, train images/s from metrics.jsonl, peak
+    bytes, front launches)."""
+    kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, bf16=True,
+              save_and_sample_every=(1 + steps) if snapshot else 10**9,
+              results_folder=folder, num_workers=8, seed=SEED, device=device)
+    tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), SyntheticDataset(size, 3, length=64),
+                 train_num_steps=1, **kw)
+    tr.train(log_every=1)
+    reset_peak(device)
+    zero_launches()
+    tr.train_num_steps = 1 + steps
+    tr.train(log_every=1)
+    launches, small, _ = launch_counts()
+    want = 17 * ACCUM * steps + (17 * d.num_timesteps if snapshot else 0)
+    if launches != want or small * 17 != want:
+        raise AssertionError(f"{type(d.op).__name__} training launched {launches} fronts "
+                             f"({small} small-C), expected {want}")
+    lines = [json.loads(x) for x in tr.metrics_path.read_text().splitlines()]
+    losses = [x["loss"] for x in lines]
+    if len(lines) != 1 + steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training metrics {lines}")
+    if snapshot and not (tr.results_folder / "sample-1.png").is_file():
+        raise AssertionError("snapshot wrote no sample-1.png")
+    timed = lines[1:1 + steps - (1 if snapshot else 0)] or lines[1:]
+    ips = float(np.median([x["images_per_sec"] for x in timed]))
+    return tr, ips, torch.cuda.max_memory_allocated(device), launches
+
+
+def random_fade_path(device, folder: str, card: str):
+    """Phase 15: Random_Incremental fade at 32 px (CIFAR-10): 5 training
+    steps that draw their crops per loss while the baked offsets stay as
+    they were, then a sample that keeps the baked offsets."""
+    op = get_operator("fade", image_size=32, timesteps=50, fade_routine="Random_Incremental",
+                      kernel_std=0.1, initial_mask=1, device=device)
+    op = op.randomize(torch.Generator(device=device).manual_seed(SEED + 7), BATCH)
+    d = ColdDiffusion(op=op, image_size=32, sampling_routine="x0_step_down")
+    deg, oracle = check_operator(d, 32, device)
+    draws = []
+    counted = op.to(device)  # a copy whose crop draws are counted
+    counted.sample_rng_state = lambda generator, b: (draws.append(b),
+                                                     op.sample_rng_state(generator, b))[1]
+    tr, ips, peak, launches = train_workflow(dataclasses.replace(d, op=counted), device,
+                                             folder, 32, 5, snapshot=False)
+    tr_op = tr.diffusion.op
+    if len(draws) != 6 * ACCUM or not torch.equal(tr_op.offsets.cpu(), op.offsets.cpu()):
+        raise AssertionError(f"Random_Incremental training: {len(draws)} crop draws, "
+                             f"offsets kept: {torch.equal(tr_op.offsets.cpu(), op.offsets.cpu())}")
+    before = tr_op.offsets.clone()
+    row = sample_path(tr.diffusion, seeded_unet(SEED, device, **FLAGSHIP).to(torch.bfloat16),
+                      device, BATCH, 32)
+    if not torch.equal(tr.diffusion.op.offsets, before):
+        raise AssertionError("sampling changed the baked crop offsets")
+    row.update(phase="15", train_images_per_s=ips, train_peak_bytes=peak,
+               train_launches=launches, crop_draws=len(draws), degrade_rel_err=deg,
+               oracle_rel_err=oracle)
+    log(f"[15] Random_Incremental fade 32px T=50 B={BATCH}: 5 Trainer.train() steps, "
+        f"{ips:.3f} train images/s (median), peak {peak} bytes, front launches {launches}, "
+        f"{len(draws)} crop draws (warm-up included), baked offsets unchanged; sample "
+        f"{row['images_per_s']:.3f} images/s, peak {row['peak_bytes']} bytes, offsets "
+        f"unchanged; degrade rel err {deg:.3e}, oracle rel err {oracle:.3e}; card: {card}")
+    return row
+
+
+def trajectories(model, device, card: str):
+    """Phase 16: all_sample on the flagship blur path, traj_stride 10."""
+    d = blur_diffusion(IMG, T, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    img = torch.rand(BATCH, IMG, IMG, 3, generator=gen, device=device) * 2 - 1
+    denoise = bf16_denoise(model)
+    start = prepare_start(d, img)
+    base = reset_peak(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = all_sample(d, denoise, start, traj_stride=TRAJ_STRIDE)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches, small, _ = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    frames = T // TRAJ_STRIDE
+    if (res.x0_trajectory.shape != (frames, BATCH, IMG, IMG, 3)
+            or res.xt_trajectory.shape != res.x0_trajectory.shape):
+        raise AssertionError(f"trajectories {res.x0_trajectory.shape}")
+    if not torch.equal(res.x0_trajectory[0], res.direct_recons):
+        raise AssertionError("x0_trajectory[0] is not direct_recons")
+    if not torch.equal(res.xt_trajectory[0], start):
+        raise AssertionError("xt_trajectory[0] is not the start")
+    tail = sample(d, denoise, res.xt_trajectory[-1], t=TRAJ_STRIDE).img
+    tail_err = (tail - res.img).abs().max().item()
+    if not tail_err <= ORACLE_ATOL:
+        raise AssertionError(f"the last xt frame does not feed the last steps: {tail_err}")
+    if launches != 17 * T or small != T:
+        raise AssertionError(f"all_sample launched {launches} fronts, {small} small-C")
+    traj_bytes = res.x0_trajectory.nbytes + res.xt_trajectory.nbytes
+    log(f"[16] all_sample blur T={T} B={BATCH} {IMG}px traj_stride {TRAJ_STRIDE}: "
+        f"{seconds:.3f} s, {BATCH / seconds:.3f} images/s, peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB; {base} allocated before the run), trajectories "
+        f"{traj_bytes} bytes; frame 0 == "
+        f"direct_recons; last xt frame + {TRAJ_STRIDE} steps vs img max err {tail_err:.3e}; "
+        f"front launches {launches}; card: {card}")
+    return dict(phase="16", seconds=seconds, images_per_s=BATCH / seconds, peak_bytes=peak,
+                base_bytes=base, trajectory_bytes=traj_bytes, tail_err=tail_err)
 
 
 def probe_kernels(device):
@@ -460,7 +781,10 @@ def probe_kernels(device):
             timed_row(row, "library_ms", library)
         rows.append(row)
         log("  probe", json.dumps(rows[-1]))
-    return rows
+    # the launch floor: an empty kernel, timed the same way
+    floor = {}
+    timed_row(floor, "ms", lambda: torch.cuda._sleep(0))
+    return rows, floor
 
 
 def main() -> int:
@@ -527,7 +851,7 @@ def main() -> int:
 
     # 4. UNet parity, fp32, GPU vs CPU
     model32 = seeded_unet(SEED, dev, **FLAGSHIP)
-    convnext_front.launches = convnext_front.small_c_launches = 0
+    zero_launches()
     with torch.inference_mode():
         got = model32(x1.to(dev), t1.to(dev))
     torch.cuda.synchronize(dev)
@@ -603,22 +927,63 @@ def main() -> int:
         f"{snap_s:.3f} s; checkpoint round trip bitwise; card: {card}")
 
     # 9. probes
-    probes = probe_kernels(dev)
+    probes, floor = probe_kernels(dev)
     log("[9] probes: " + ", ".join(f"{r['name']} max err {r['max_abs_err']:.3e} "
                                     f"{r['ms'] * 1e3:.3f} us vs plain "
                                     f"{r['plain_ms'] * 1e3:.3f} us, bound "
                                     f"{r['bound_us']:.3f} us" for r in probes)
-        + f"; card: {card}")
+        + f"; launch floor (torch.cuda._sleep(0)) {floor['ms'] * 1e3:.3f} us"
+        + (" (host-paced)" if "host_paced" in floor else "") + f"; card: {card}")
 
-    def front_entry(name, row, launched, train_launched, small):
+    # 10. the wide-C front
+    wide_rows, wide32, wide16, wide_rel, wide_all, wide_small, wide_launches = \
+        wide_c_fronts(dev, (x1, t1))
+    if not (wide_rel <= UNET_REL_L2 and (wide_all, wide_small, wide_launches) == (17, 1, 1)):
+        raise AssertionError(f"dim={WIDE_DIM} UNet: rel L2 {wide_rel}, launches "
+                             f"{(wide_all, wide_small, wide_launches)}, expected (17, 1, 1)")
+    w0 = wide_rows[0]
+    log(f"[10] wide-C kernels == plain at {[r['shape'] for r in wide_rows]}: fp32 max err "
+        f"{wide32:.3e} (<= {FRONT_FP32_ATOL}), bf16 max err {wide16:.3e}; {w0['shape']}: "
+        + "; ".join(f"{tag} {w0['ms_' + tag] * 1e3:.3f} us (call {w0['call_ms_' + tag]:.4f} "
+                    f"ms) vs library {w0['library_ms_' + tag] * 1e3:.3f} us, plain "
+                    f"{w0['plain_ms_' + tag] * 1e3:.3f} us, bound {w0['bound_us_' + tag]:.3f} "
+                    f"us ({w0['bound_by_' + tag]}, {100 * w0['bound_share_' + tag]:.2f}%)"
+                    for tag in ("fp32", "bf16"))
+        + f"; UnetConvNext(dim={WIDE_DIM}) fp32 cuda vs cpu rel L2 {wide_rel:.3e} (<= "
+        f"{UNET_REL_L2}), front launches {wide_all}, small-C {wide_small}, wide-C "
+        f"{wide_launches}; card: {card}")
+
+    # 11-14. the other workflows' sampling paths; 14-15 their training
+    model16 = seeded_unet(SEED, dev, **FLAGSHIP).to(torch.bfloat16)
+    flows = workflows(model16, dev, card)
+    with tempfile.TemporaryDirectory() as folder:
+        fgen_row = next(r for r in flows if r["op"] == "FadeGeneration")
+        d = ColdDiffusion(op=get_operator("fade_generation", image_size=IMG, timesteps=750,
+                                          reverse=True, kernel_std=0.05, device=dev),
+                          image_size=IMG, sampling_routine="x0_step_down")
+        # the Trainer itself is not kept: later phases measure peak memory
+        ips, peak, fg_launches = train_workflow(d, dev, folder + "/p14", IMG, 3,
+                                                snapshot=True)[1:]
+        fgen_row.update(train_images_per_s=ips, train_peak_bytes=peak,
+                        train_launches=fg_launches)
+        log(f"[14] fade_generation Trainer.train() B={BATCH} x accum {ACCUM} {IMG}px bf16, "
+            f"3 steps (the last with save + EMA snapshot, T=750): {ips:.3f} train images/s "
+            f"(median of the 2 steps without the snapshot), peak memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB), front launches {fg_launches}; card: {card}")
+        flows.append(random_fade_path(dev, folder + "/p15", card))
+    # 16. all_sample
+    flows.append(trajectories(model16, dev, card))
+    del model16
+    log("[11-16] " + json.dumps(flows))
+
+    def front_entry(name, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16
         (the main path's dtype); max_abs_err is fp32, over its fronts."""
         return {
             "name": name, "route": "cuda", "source": "colddiff_torch/csrc/convnext_front.cu",
             "replaces": "colddiff/ops/pallas/convnext_front.py:129",
             "launches": launched, "train_launches": train_launched,
-            "max_abs_err": max(r["max_abs_err_fp32"] for r in rows
-                               if (r["kernel"] == "small_c") == small),
+            "max_abs_err": max_abs_err,
             "shape": row["shape"], "dtype": "bfloat16", "ms": row["ms_bf16"],
             "plain_ms": row["plain_ms_bf16"], "library_ms": row["library_ms_bf16"],
             "bound_ms": row["bound_us_bf16"] / 1e3, "bound_us": row["bound_us_bf16"],
@@ -628,9 +993,13 @@ def main() -> int:
     stem = next(r for r in rows if r["kernel"] == "small_c")
     level0 = next(r for r in rows if r["shape"][1:] == [IMG, IMG, 64] and r["cond"])
     kernels = [
-        front_entry("convnext_front_small_c", stem, small_launches, train_small, True),
+        front_entry("convnext_front_small_c", stem, small_launches, train_small,
+                    max(r["max_abs_err_fp32"] for r in rows if r["kernel"] == "small_c")),
         front_entry("convnext_front", level0, launches - small_launches,
-                    train_launches - train_small, False),
+                    train_launches - train_small,
+                    max(r["max_abs_err_fp32"] for r in rows if r["kernel"] == "tile")),
+        # launches: the dim=80 forward of phase 10, the path that has a C > 1024 front
+        front_entry("convnext_front_wide_c", w0, wide_launches, None, wide32),
     ] + [{
         "name": r["name"], "route": "cuda",
         "source": "colddiff_torch/csrc/bisect_mosaic.cu", "replaces": r["replaces"],

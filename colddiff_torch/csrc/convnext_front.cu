@@ -9,7 +9,7 @@
 // vector registers.  x and out are NHWC in memory (NCHW tensors in
 // channels_last format); taps, bias, conditioning and the LayerNorm
 // statistics are fp32 for fp32 and bf16 inputs, and the output rounds once.
-// Two kernels, picked by C.
+// Three paths, picked by C: small C, the tile kernel, and wide C.
 //
 // Tile kernel (C >= 32, up to 1024).  What bounds it on the H100: operations
 // in bf16, bytes in fp32.  Each output costs 49 fp32 FMAs; at the
@@ -97,6 +97,26 @@
 // bandwidth, not device memory, sets its pace; reusing a row of x across
 // several outputs of one thread is the next step.  Measured times beside
 // these bounds are in PERF.md.
+//
+// Wide C (kTileMaxChannels < C <= kMaxChannels): the tile kernel keeps all C
+// channels of its tile in one block (the staged outputs and the LayerNorm),
+// so its shared memory grows with C, past the 227 KB a block may have.  Above
+// 1024 channels the front runs as two kernels over an fp32 workspace
+// [B,H,W,C] that the caller allocates:
+//   1. convnext_front_wide_conv_kernel: a block owns an 8x8 output tile of
+//      one image and one chunk of kWideCK = 32 channels (grid: tiles x
+//      chunks x B), stages the chunk's 14x14 input halo and its weights in
+//      shared memory as fp32 (zeros outside the image and beyond C), and
+//      each thread slides a register window of 8 outputs along W for one
+//      channel: a warp is 32 consecutive channels of one row, so its shared
+//      reads meet in no bank.  conv + bias + cond is written to the
+//      workspace in fp32, never rounded to the input dtype.
+//   2. convnext_front_wide_norm_kernel: one warp per pixel reads its C
+//      fp32 values three times (sum, then sum of squared deviations: the
+//      two-pass form with biased variance, fp32; then the normalized,
+//      scaled output, rounded once).  With norm = 0 it only rounds.
+// A simple design that is right: the workspace costs one fp32 write and
+// three reads (mostly from L2) per output beyond the tile kernel's traffic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +124,8 @@
 
 namespace {
 
-constexpr int kMaxChannels = 1024;
+constexpr int kTileMaxChannels = 1024;  // the tile kernel's largest C
+constexpr int kMaxChannels = 8192;      // the wide-C kernels' largest C
 constexpr int kSmallCLimit = 32;  // C < kSmallCLimit takes the small-C kernel
 constexpr int kTile = 16;         // small-C output tile: kTile x kTile pixels
 constexpr int kHalo = kTile + 6;  // its input tile side (zero pad 3 each way)
@@ -454,7 +475,7 @@ int64_t tile_blocks(int B, int H, int W) {
   return (int64_t)((W + Cfg::TW - 1) / Cfg::TW) * ((H + Cfg::TH - 1) / Cfg::TH) * B;
 }
 
-// 32 <= C <= kMaxChannels; w is [C, 49], the torch layout.  Takes the first
+// 32 <= C <= kTileMaxChannels; w is [C, 49], the torch layout.  Takes the first
 // configuration that holds C and gives at least kMinBlocks blocks (or the
 // last).
 template <typename T>
@@ -660,13 +681,137 @@ cudaError_t launch_small_c(const void* x, const void* w, const void* bias, const
 #undef COLDDIFF_SMALL_C_LAUNCH
 }
 
+constexpr int kWideCK = 32;              // channels per block of the wide-C conv
+constexpr int kWideTile = 8;             // its output tile: kWideTile x kWideTile
+constexpr int kWideHalo = kWideTile + 6;  // the input tile's side
+constexpr int kWideNormWarps = 8;        // pixels per block of the wide-C norm
+
+template <typename T>
+__global__ void __launch_bounds__(kWideCK * kWideTile)
+convnext_front_wide_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                const T* __restrict__ bias, const T* __restrict__ cond,
+                                float* __restrict__ ws, int H, int W, int C, int tiles_x) {
+  __shared__ float xs[kWideHalo * kWideHalo][kWideCK];
+  __shared__ float wsh[49][kWideCK + 1];
+  __shared__ float add[kWideCK];
+  const int tid = threadIdx.x;
+  const int x0 = (blockIdx.x % tiles_x) * kWideTile, y0 = (blockIdx.x / tiles_x) * kWideTile;
+  const int c0 = blockIdx.y * kWideCK;
+  const int64_t b = blockIdx.z;
+  const T* xb = x + b * H * W * C;
+
+  // the chunk's halo: a warp reads 32 consecutive channels of one pixel
+  for (int i = tid; i < kWideHalo * kWideHalo * kWideCK; i += kWideCK * kWideTile) {
+    const int p = i / kWideCK, c = c0 + i % kWideCK;
+    const int yy = y0 - 3 + p / kWideHalo, xx = x0 - 3 + p % kWideHalo;
+    const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+    xs[p][i % kWideCK] = in ? to_f32(xb[((int64_t)yy * W + xx) * C + c]) : 0.f;
+  }
+  // the weights [C, 49], read in their order, stored tap-major
+  for (int i = tid; i < kWideCK * 49; i += kWideCK * kWideTile) {
+    const int cl = i / 49, tap = i % 49;
+    wsh[tap][cl] = c0 + cl < C ? to_f32(w[(int64_t)(c0 + cl) * 49 + tap]) : 0.f;
+  }
+  if (tid < kWideCK) {
+    const int c = c0 + tid;
+    float v = 0.f;
+    if (c < C) {
+      v = to_f32(bias[c]);
+      if (cond != nullptr) v += to_f32(cond[b * C + c]);
+    }
+    add[tid] = v;
+  }
+  __syncthreads();
+
+  // one thread: channel cl of the kWideTile outputs of row ty
+  const int cl = tid % kWideCK, ty = tid / kWideCK;
+  float acc[kWideTile];
+#pragma unroll
+  for (int r = 0; r < kWideTile; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 7; ++dy) {
+    float wv[7];
+#pragma unroll
+    for (int dx = 0; dx < 7; ++dx) wv[dx] = wsh[dy * 7 + dx][cl];
+#pragma unroll
+    for (int k = 0; k < kWideTile + 6; ++k) {
+      const float xv = xs[(ty + dy) * kWideHalo + k][cl];
+#pragma unroll
+      for (int dx = 0; dx < 7; ++dx) {
+        const int r = k - dx;
+        if (r >= 0 && r < kWideTile) acc[r] = fmaf(xv, wv[dx], acc[r]);
+      }
+    }
+  }
+  const int c = c0 + cl, py = y0 + ty;
+  if (c >= C || py >= H) return;
+#pragma unroll
+  for (int r = 0; r < kWideTile; ++r) {
+    const int px = x0 + r;
+    if (px < W) ws[((b * H + py) * W + px) * C + c] = acc[r] + add[cl];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideNormWarps)
+convnext_front_wide_norm_kernel(const float* __restrict__ ws, const T* __restrict__ gamma,
+                                const T* __restrict__ beta, T* __restrict__ out,
+                                int64_t pixels, int C, int norm, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * kWideNormWarps + threadIdx.x / 32;
+  if (p >= pixels) return;  // a whole warp: the shuffles below stay full
+  const float* h = ws + p * C;
+  T* o = out + p * C;
+  if (!norm) {
+    for (int c = lane; c < C; c += 32) o[c] = from_f32<T>(h[c]);
+    return;
+  }
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += h[c];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  const float mean = s / (float)C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = h[c] - mean;
+    v = fmaf(d, d, v);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  const float rstd = rsqrtf(v / (float)C + eps);
+  for (int c = lane; c < C; c += 32)
+    o[c] = from_f32<T>((h[c] - mean) * rstd * to_f32(gamma[c]) + to_f32(beta[c]));
+}
+
+// kTileMaxChannels < C <= kMaxChannels; ws: B*H*W*C floats.
+template <typename T>
+cudaError_t launch_wide(const void* x, const void* w, const void* bias, const void* cond,
+                        const void* gamma, const void* beta, void* out, float* ws, int B,
+                        int H, int W, int C, int norm, float eps, cudaStream_t stream) {
+  if (B > 65535 || ws == nullptr) return cudaErrorInvalidValue;
+  const int tiles_x = (W + kWideTile - 1) / kWideTile;
+  const int64_t tiles = (int64_t)tiles_x * ((H + kWideTile - 1) / kWideTile);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (C + kWideCK - 1) / kWideCK, B);
+  convnext_front_wide_conv_kernel<T><<<grid, kWideCK * kWideTile, 0, stream>>>(
+      (const T*)x, (const T*)w, (const T*)bias, (const T*)cond, ws, H, W, C, tiles_x);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t pixels = (int64_t)B * H * W;
+  const int64_t blocks = (pixels + kWideNormWarps - 1) / kWideNormWarps;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  convnext_front_wide_norm_kernel<T><<<(unsigned)blocks, 32 * kWideNormWarps, 0, stream>>>(
+      ws, (const T*)gamma, (const T*)beta, (T*)out, pixels, C, norm, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes by colddiff_torch/ops/convnext_front.py.
 // x, out: [B,H,W,C] (NHWC memory); w: [C,49] (the torch layout [C,1,7,7]);
 // bias, gamma, beta: [C]; cond: [B,C] or NULL; gamma/beta are read only
 // when norm != 0.  The kernel follows C: C < 32 launches the small-C
-// kernel, C >= 32 the tile kernel.
+// kernel, 32 <= C <= 1024 the tile kernel (wider C: the entry point below).
 // dtype: 0 = float32, 1 = bfloat16 (all tensors share it).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int colddiff_convnext_front(const void* x, const void* w, const void* bias,
@@ -674,7 +819,7 @@ extern "C" int colddiff_convnext_front(const void* x, const void* w, const void*
                                        const void* beta, void* out, int B, int H, int W,
                                        int C, int norm, float eps, int dtype,
                                        void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxChannels)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kTileMaxChannels)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (C < kSmallCLimit) {
@@ -689,5 +834,25 @@ extern "C" int colddiff_convnext_front(const void* x, const void* w, const void*
   const TileArgs a{x, w, bias, cond, gamma, beta, out, H, W, C, norm, eps, 0, 0};
   if (dtype == 0) return (int)launch_tile<float>(a, B, s);
   if (dtype == 1) return (int)launch_tile<__nv_bfloat16>(a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same front for 1024 < C <= 8192 (the wide-C kernels); the arguments
+// are those above plus ws, an fp32 workspace of B*H*W*C floats on the same
+// device, which holds conv + bias + cond between the two kernels.
+extern "C" int colddiff_convnext_front_wide(const void* x, const void* w, const void* bias,
+                                            const void* cond, const void* gamma,
+                                            const void* beta, void* out, void* ws, int B,
+                                            int H, int W, int C, int norm, float eps,
+                                            int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= kTileMaxChannels || C > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch_wide<float>(x, w, bias, cond, gamma, beta, out, (float*)ws, B, H, W, C,
+                                   norm, eps, s);
+  if (dtype == 1)
+    return (int)launch_wide<__nv_bfloat16>(x, w, bias, cond, gamma, beta, out, (float*)ws, B,
+                                           H, W, C, norm, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,27 +1,37 @@
 """Degradation operator registry.
 
-Only ``blur`` is ported so far.  The other names of ``colddiff.operators``
-raise ``NotImplementedError`` that names the ``ROADMAP.md`` item that will
-port them.
+Ported: ``blur``, ``decolor``, ``fade``, ``fade_generation`` and
+``resolution``.  The other names of ``colddiff.operators`` raise
+``NotImplementedError`` that names the ``ROADMAP.md`` item that will port
+them.
 """
 
 from .base import Degradation
 from .blur import GaussianBlur
+from .decolor import Decolorization
+from .fade import Fade
+from .fade_generation import FadeGeneration
+from .resolution import Resolution
 
 _REGISTRY = {
     "blur": GaussianBlur,
+    "decolor": Decolorization,
+    "fade": Fade,
+    "fade_generation": FadeGeneration,
+    "resolution": Resolution,
 }
 
 # colddiff.operators names not ported yet -> the ROADMAP.md item porting them
 _PENDING = {
-    name: "ROADMAP.md section 1, item 8 (other operators)"
-    for name in ("noise", "mix", "decolor", "fade", "fade_naive",
-                 "fade_generation", "resolution", "snow")
+    "noise": "ROADMAP.md section 1, item 8 (Family-B noise and mix)",
+    "mix": "ROADMAP.md section 1, item 8 (Family-B noise and mix)",
+    "snow": "ROADMAP.md section 1, item 8 (snow, with og)",
+    "fade_naive": "ROADMAP.md section 1, item 8 (fade_naive and its spiral routines)",
 }
 
 
 def get_operator(name: str, **cfg) -> Degradation:
-    """Build a degradation operator by name (only 'blur' is ported).
+    """Build a degradation operator by name.
 
     ``cfg`` is the JAX ``get_operator``'s keywords plus ``device``, where the
     operator's tables live: ``"cuda"`` unless the caller asks for the CPU.
@@ -38,4 +48,5 @@ def get_operator(name: str, **cfg) -> Degradation:
     return cls.create(**cfg)
 
 
-__all__ = ["Degradation", "GaussianBlur", "get_operator"]
+__all__ = ["Degradation", "Decolorization", "Fade", "FadeGeneration", "GaussianBlur",
+           "Resolution", "get_operator"]

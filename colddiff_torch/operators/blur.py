@@ -19,7 +19,7 @@ import torch
 
 from ..ops import linop
 from ..schedules import blur_routine_params, gaussian_kernel_1d
-from .base import Degradation
+from .base import Degradation, table_device
 
 __all__ = ["GaussianBlur"]
 
@@ -56,10 +56,7 @@ class GaussianBlur(Degradation):
     ) -> "GaussianBlur":
         """Build the tables on ``device``: the card by default, like the
         ``Trainer``; with no CUDA device, pass ``device="cpu"``."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GaussianBlur on a CUDA device, but no CUDA device is "
-                               "available; pass device='cpu' to build it on the CPU")
+        device = table_device(device, "GaussianBlur")
         params = blur_routine_params(
             blur_routine, timesteps, kernel_size, kernel_std,
             start_kernel_std, target_kernel_std,
@@ -78,24 +75,14 @@ class GaussianBlur(Degradation):
             discrete=discrete,
         )
 
-    def to(self, device: torch.device | str) -> "GaussianBlur":
-        """A copy of this operator with its tables on ``device``."""
-        return GaussianBlur(timesteps=self.timesteps, cum=self.cum.to(device),
-                            steps=self.steps.to(device),
-                            blur_routine=self.blur_routine,
-                            discrete=self.discrete)
-
-    def _levels(self, n) -> torch.Tensor:
-        return torch.as_tensor(n, dtype=torch.long, device=self.cum.device)
-
     def _collapse_discrete(self, y: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         """At the final level the image collapses to its channel mean."""
         mean = y.mean(dim=(1, 2), keepdim=True)
         at_final = (n == self.timesteps).reshape(-1, 1, 1, 1)
         return torch.where(at_final, mean.expand_as(y), y)
 
-    def degrade(self, x, n, *, x_end=None):
-        n = self._levels(n)
+    def degrade(self, x, n, *, x_end=None, rng=None):
+        n = self._levels(n, self.cum.device)
         y = linop.apply_separable(x, self.cum, n)
         if self.discrete:
             y = self._collapse_discrete(y, n)
@@ -127,5 +114,5 @@ class GaussianBlur(Degradation):
     def degrade_sampling(self, x, n, **kw):
         if self.blur_routine == "Individual_Incremental":
             # single per-level kernel (deblurring_diffusion_pytorch.py:405,429)
-            return linop.apply_separable(x, self.steps, self._levels(n))
+            return linop.apply_separable(x, self.steps, self._levels(n, self.steps.device))
         return self.degrade(x, n, **kw)

@@ -21,6 +21,11 @@ inputs and round the output once.
   channels; each channel chunk's input halo is staged in shared memory,
   and each thread slides a register window over W for one channel pair,
   so the LayerNorm closes inside the block.
+- C > 1024, up to ``MAX_CHANNELS`` (the 16*dim front of a ``dim`` > 64
+  UNet): the wide-C kernels.  A first kernel writes conv + bias + cond
+  per chunk of 32 channels to an fp32 workspace [B, H, W, C], which this
+  wrapper allocates; a second normalizes each pixel's C values from it
+  (one warp per pixel, two-pass fp32 statistics).  A larger C raises.
 
 Both take the weights in their torch layout [C, 49], so a call whose w is
 already contiguous in the compute dtype copies nothing: the kernel reads
@@ -50,9 +55,11 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS", "SMALL_C"]
+__all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS", "SMALL_C",
+           "TILE_MAX_CHANNELS"]
 
-MAX_CHANNELS = 1024  # the tile kernel's largest channel count (kMaxChannels)
+TILE_MAX_CHANNELS = 1024  # the tile kernel's largest C (kTileMaxChannels in the .cu)
+MAX_CHANNELS = 8192  # the wide-C kernels' largest C (kMaxChannels)
 SMALL_C = 32  # C < SMALL_C launches the small-C kernel (kSmallCLimit in the .cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,6 +98,15 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _wide_kernel():
+    fn = _build.load_library().colddiff_convnext_front_wide
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_vector(name: str, t: Optional[torch.Tensor], shape: tuple,
                   x: torch.Tensor, dt: torch.dtype) -> None:
     if t is None:
@@ -114,7 +130,8 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     if dt not in _DTYPE_CODE:
         raise TypeError(f"convnext_front kernel takes float32 or bfloat16, got {dt}")
     if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f"convnext_front kernel takes 1..{MAX_CHANNELS} channels, got {c}")
+        raise ValueError(f"convnext_front kernels take 1..{MAX_CHANNELS} channels "
+                         f"(MAX_CHANNELS), got {c}")
     _check_vector("w", w, (c, 1, 7, 7), x, dt)
     _check_vector("b", b, (c,), x, dt)
     _check_vector("cond", cond, (bsz, c), x, dt)
@@ -131,18 +148,28 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
         gamma, beta = gamma.to(dt).contiguous(), beta.to(dt).contiguous()
     out = torch.empty((bsz, c, hgt, wid), dtype=dt, device=x.device,
                       memory_format=torch.channels_last)
-    with torch.cuda.device(x.device):
-        err = _kernel()(
-            x.data_ptr(), wk.data_ptr(), b.data_ptr(),
+    ptrs = (x.data_ptr(), wk.data_ptr(), b.data_ptr(),
             None if cond is None else cond.data_ptr(),
             gamma.data_ptr() if norm else None, beta.data_ptr() if norm else None,
-            out.data_ptr(), bsz, hgt, wid, c, int(norm), float(eps),
-            _DTYPE_CODE[dt], torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr())
+    tail = (int(norm), float(eps), _DTYPE_CODE[dt])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if c <= TILE_MAX_CHANNELS:
+            err = _kernel()(*ptrs, bsz, hgt, wid, c, *tail, stream)
+        else:
+            # conv + bias + cond in fp32 between the two wide-C kernels; freed
+            # to the caching allocator on return, whose next use on this
+            # stream runs after them
+            ws = torch.empty(bsz * hgt * wid * c, dtype=torch.float32, device=x.device)
+            err = _wide_kernel()(*ptrs, ws.data_ptr(), bsz, hgt, wid, c, *tail, stream)
     if err != 0:
         raise RuntimeError(f"convnext_front kernel launch failed: cudaError {err}")
     convnext_front.launches += 1
     if c < SMALL_C:
         convnext_front.small_c_launches += 1
+    elif c > TILE_MAX_CHANNELS:
+        convnext_front.wide_c_launches += 1
     return out
 
 
@@ -178,10 +205,11 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
                    eps: float = 1e-5) -> torch.Tensor:
     """Fused dw7x7 + bias + cond + LayerNorm; see the module docstring.
 
-    ``convnext_front.launches`` counts the launches of both kernels and
-    ``convnext_front.small_c_launches`` those of the small-C kernel alone
-    (CPU calls and comparisons made through :func:`convnext_front_plain` do
-    not count).
+    ``convnext_front.launches`` counts the launches of every kernel,
+    ``convnext_front.small_c_launches`` those of the small-C kernel alone and
+    ``convnext_front.wide_c_launches`` those of the wide-C pair (one per
+    call; CPU calls and comparisons made through
+    :func:`convnext_front_plain` do not count).
     """
     if norm and (gamma is None or beta is None):
         raise ValueError("convnext_front: norm=True needs gamma and beta")
@@ -190,3 +218,4 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
 
 convnext_front.launches = 0
 convnext_front.small_c_launches = 0
+convnext_front.wide_c_launches = 0

@@ -10,7 +10,7 @@ matmuls:
     y[b] = P[t_b] @ x[b] @ P[t_b]^T        (per channel)
 
 The matrix builders are copies of the JAX package's numpy code (pinned to it
-by ``tests/test_torch_blur.py``).  The two products are plain batched
+by ``tests/test_torch_blur.py`` and ``tests/test_torch_operators.py``).  The two products are plain batched
 matmuls, which go to ``torch.einsum`` / cuBLAS as the JAX package leaves them
 to XLA.
 """
@@ -22,6 +22,8 @@ import torch
 
 __all__ = [
     "conv1d_matrix",
+    "resize1d_matrix",
+    "resize_step_matrix",
     "cumulative_matrices",
     "apply_separable",
     "apply_rowcol",
@@ -66,6 +68,83 @@ def conv1d_matrix(kernel: np.ndarray, n: int, mode: str = "circular") -> np.ndar
             if src >= 0:
                 m[i, src] += k[j]
     return m
+
+
+def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic convolution kernel (torch bicubic, a = -0.75)."""
+    ax = np.abs(x)
+    w = np.where(
+        ax <= 1.0,
+        (a + 2.0) * ax**3 - (a + 3.0) * ax**2 + 1.0,
+        np.where(ax < 2.0, a * (ax**3 - 5.0 * ax**2 + 8.0 * ax - 4.0), 0.0),
+    )
+    return w
+
+
+def resize1d_matrix(n_in: int, n_out: int, mode: str) -> np.ndarray:
+    """[n_out, n_in] matrix of torch ``F.interpolate`` along one axis.
+
+    Implements align_corners=False, antialias=False semantics for
+    'bilinear' / 'bicubic' / 'nearest' / 'nearest-exact', and
+    adaptive-average semantics for 'area' (exactly what torch 'area' mode is).
+    Held against torch's ``F.interpolate`` in tests/test_torch_operators.py.
+    """
+    m = np.zeros((n_out, n_in), dtype=np.float64)
+    if n_in == n_out and mode != "area":
+        return np.eye(n_in, dtype=np.float64)
+    scale = n_in / n_out
+    if mode == "bilinear" or mode == "linear":
+        for i in range(n_out):
+            src = (i + 0.5) * scale - 0.5
+            src = max(src, 0.0)
+            i0 = int(np.floor(src))
+            i1 = min(i0 + 1, n_in - 1)
+            frac = src - i0
+            i0 = min(i0, n_in - 1)
+            m[i, i0] += 1.0 - frac
+            m[i, i1] += frac
+    elif mode == "bicubic" or mode == "cubic":
+        for i in range(n_out):
+            src = (i + 0.5) * scale - 0.5
+            i0 = int(np.floor(src))
+            frac = src - i0
+            xs = np.array([frac + 1.0, frac, 1.0 - frac, 2.0 - frac])
+            ws = _cubic_weight(xs)
+            for tap, w in zip((i0 - 1, i0, i0 + 1, i0 + 2), ws):
+                m[i, min(max(tap, 0), n_in - 1)] += w
+    elif mode == "nearest":
+        for i in range(n_out):
+            src = min(int(np.floor(i * scale)), n_in - 1)
+            m[i, src] = 1.0
+    elif mode == "nearest-exact":
+        for i in range(n_out):
+            src = min(int(np.floor((i + 0.5) * scale)), n_in - 1)
+            m[i, src] = 1.0
+    elif mode == "area":
+        for i in range(n_out):
+            lo = i * n_in / n_out
+            hi = (i + 1) * n_in / n_out
+            i0 = int(np.floor(lo))
+            i1 = int(np.ceil(hi))
+            # torch adaptive_avg_pool: uniform average over [floor(lo), ceil(hi))
+            taps = range(i0, min(i1, n_in))
+            w = 1.0 / len(list(taps))
+            for tap in range(i0, min(i1, n_in)):
+                m[i, tap] += w
+    else:
+        raise ValueError(f"unknown resize mode: {mode}")
+    return m
+
+
+def resize_step_matrix(size: int, target: int, mode: str) -> np.ndarray:
+    """One resolution-pyramid step as a [size, size] matrix.
+
+    Matches resolution_diffusion_pytorch.py:370-371: downsample to ``target``
+    with ``mode`` then upsample back to ``size`` with 'nearest-exact'.
+    """
+    down = resize1d_matrix(size, target, mode)
+    up = resize1d_matrix(target, size, "nearest-exact")
+    return up @ down
 
 
 def cumulative_matrices(step_matrices: list[np.ndarray]) -> np.ndarray:

@@ -1,9 +1,11 @@
-"""Blur schedules: per-step Gaussian kernel tables.
+"""Degradation schedules: per-step kernel and factor tables.
 
-Copies of ``colddiff.schedules.gaussian_kernel_1d``, ``gaussian_kernel_2d``
-and ``blur_routine_params`` (the JAX package imports JAX at package import,
-so the port carries its own numpy builders; ``tests/test_torch_blur.py``
-pins each copy to the original).  Host-side setup: numpy, float64
+Copies of ``colddiff.schedules.gaussian_kernel_1d``, ``gaussian_kernel_2d``,
+``blur_routine_params``, ``decolor_routine_thetas``, ``fade_routine_sigmas``
+and ``resolution_routine_sizes`` (the JAX package imports JAX at package
+import, so the port carries its own numpy table code;
+``tests/test_torch_blur.py`` and ``tests/test_torch_operators.py`` pin each
+copy to the original).  Host-side setup: numpy, float64
 internally, float32 out.
 """
 
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gaussian_kernel_1d", "gaussian_kernel_2d", "blur_routine_params"]
+__all__ = ["gaussian_kernel_1d", "gaussian_kernel_2d", "blur_routine_params",
+           "decolor_routine_thetas", "fade_routine_sigmas", "resolution_routine_sizes"]
 
 
 def gaussian_kernel_1d(size: int, sigma: float) -> np.ndarray:
@@ -89,4 +92,82 @@ def blur_routine_params(
             out.append((size, s, "circular"))
     else:
         raise ValueError(f"unknown blur routine: {routine}")
+    return out
+
+
+def decolor_routine_thetas(
+    routine: str,
+    timesteps: int,
+    ema_factor: float = 0.9,
+    total_remove: bool = False,
+) -> list[float]:
+    """Per-step channel-mix factor theta (kernel = theta*I + (1-theta)*mean).
+
+    Matches snowification/diffusion/forward_process_impl.py:168-189: ``Constant``
+    repeats ema_factor; ``Linear`` picks per-step thetas so the cumulative
+    saturation decays linearly; total_remove forces the final step to theta=0.
+    """
+    thetas: list[float] = []
+    if routine == "Constant":
+        for i in range(timesteps):
+            last = i == timesteps - 1
+            thetas.append(0.0 if (last and total_remove) else ema_factor)
+    elif routine == "Linear":
+        diff = 1.0 / timesteps
+        start = 1.0
+        for i in range(timesteps):
+            if i == timesteps - 1 and total_remove:
+                thetas.append(0.0)
+            else:
+                f = 1.0 - diff / start
+                start = start * f
+                thetas.append(f)
+    else:
+        raise ValueError(f"unknown decolor routine: {routine}")
+    return thetas
+
+
+def fade_routine_sigmas(
+    routine: str, timesteps: int, kernel_std: float, initial_mask: int
+) -> list[float]:
+    """Per-step Gaussian-bump sigma for the conditional fade operator.
+
+    defading_diffusion_gaussian.py:337-352: sigma = kernel_std * (i + initial_mask)
+    for Incremental / Random_Incremental; constant kernel_std for Constant.
+    """
+    if routine in ("Incremental", "Random_Incremental"):
+        return [kernel_std * (i + initial_mask) for i in range(timesteps)]
+    if routine == "Constant":
+        return [kernel_std for _ in range(timesteps)]
+    raise ValueError(f"unknown fade routine: {routine}")
+
+
+def resolution_routine_sizes(routine: str, timesteps: int, image_size: int):
+    """Per-step (target_size, mode, do_blur) for the resolution pyramid.
+
+    resolution_diffusion_pytorch.py:390-414: ``Incremental*`` shrink by i pixels;
+    ``*_factor_2`` shrink to image_size // 2^(i+1).
+    """
+    base = routine
+    do_blur = base.endswith("_with_blur")
+    if do_blur:
+        base = base[: -len("_with_blur")]
+    factor2 = base.endswith("_factor_2")
+    if factor2:
+        base = base[: -len("_factor_2")]
+    mode = {
+        "Incremental": "bicubic",
+        "Incremental_bilinear": "bilinear",
+        "Incremental_area": "area",
+        "Incremental_bicubic": "bicubic",
+    }.get(base)
+    if mode is None:
+        raise ValueError(f"unknown resolution routine: {routine}")
+    out = []
+    for i in range(timesteps):
+        if factor2:
+            dec = image_size - image_size // 2 ** (i + 1)
+        else:
+            dec = i
+        out.append((image_size - dec, mode, do_blur))
     return out

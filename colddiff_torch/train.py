@@ -13,17 +13,21 @@ As in the JAX Trainer:
   - ``bf16=True`` casts the parameters and the input to bf16 at each
     forward and keeps fp32 master weights, Adam moments and EMA (the JAX
     recipe, not per-op autocast);
-  - the denoiser's output is cast to fp32, so the loss is fp32.
-All per-step randomness (the t draws, ``op.reset``, ``op.sample_x_end``)
-comes from one ``torch.Generator`` seeded by ``seed``.
+  - the denoiser's output is cast to fp32, so the loss is fp32;
+  - each microbatch draws its Family-B endpoint (``op.sample_x_end``), its
+    t and its operator state (``op.sample_rng_state``: fade's crops) from
+    one ``torch.Generator`` seeded by ``seed``;
+  - only operators with ``random_snow`` are reset at each step
+    (colddiff/train.py:468-478), from a generator of their own seeded by the
+    step, so a fade operator's baked crops never change in training.
 
 Checkpoints are ``torch.save`` blobs ``{step, model, ema, opt, generator}``
 (``results_folder/model.pt``); ``model`` and ``ema`` have the reference's
 state-dict names.
 
 Not ported yet: multi-process training and parameter sharding (ROADMAP.md
-section 1, item 12), the restart supervisor (item 13), Family-B endpoint
-datasets (item 8), and ``remat``, ``to_lab``, ``profile_dir`` and
+section 1, item 12), the restart supervisor (item 13), the endpoint dataset
+of ``mix`` (``second_dataset``, item 8), and ``remat``, ``to_lab``, ``profile_dir`` and
 ``debug_nans`` (item 6).  Passing any of them raises
 ``NotImplementedError``.
 """
@@ -52,7 +56,7 @@ __all__ = ["Trainer"]
 
 # JAX Trainer arguments not ported yet -> the ROADMAP.md item that ports them
 _UNPORTED = {
-    "second_dataset": "section 1, item 8 (Family-B operators)",
+    "second_dataset": "section 1, item 8 (Family-B noise and mix)",
     "param_sharding": "section 1, item 12 (parallelism)",
     "fsdp_min_size": "section 1, item 12 (parallelism)",
     "mesh": "section 1, item 12 (parallelism)",
@@ -106,10 +110,6 @@ class Trainer:
             # the degrade matmuls need full fp32; the flag is global, so the
             # caller sets it (ops/linop.py)
             require_ieee_fp32(torch.empty(0, device=self.device))
-        if diffusion.op.requires_x_end:
-            raise NotImplementedError(
-                "endpoint (Family-B) operators are not ported yet; "
-                "see ROADMAP.md section 1, item 8")
         if load_path is not None and load_torch_path is not None:
             raise ValueError("pass load_path or load_torch_path, not both")
 
@@ -182,28 +182,39 @@ class Trainer:
             return xs.pin_memory().to(self.device, non_blocking=True)
         return xs.to(self.device)
 
-    def train_step(self, batch: torch.Tensor,
-                   t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _maybe_reset_op(self) -> None:
+        """Redraw the state of operators with ``random_snow`` before each step
+        (colddiff/train.py:468-478), from a generator seeded by the step
+        alone, as JAX folds the step into ``key(997)``; the training
+        generator's stream is left as it is."""
+        op = self.diffusion.op
+        if getattr(op, "random_snow", False):
+            gen = torch.Generator(device=self.device).manual_seed((997 << 32) + self.step)
+            self.diffusion = dataclasses.replace(self.diffusion,
+                                                 op=op.reset(gen, self.batch_size))
+
+    def train_step(self, batch: torch.Tensor, t: Optional[torch.Tensor] = None,
+                   x_end: Optional[torch.Tensor] = None, rng=None) -> torch.Tensor:
         """One optimizer step over the ``[accum, B, ...]`` microbatches of
         ``batch``; returns the mean microbatch loss (a 0-d device tensor).
 
-        ``t`` ([accum, B] levels) replaces the generator's t draws; the
-        tests use it to replay the JAX Trainer's draws."""
-        op = self.diffusion.op.reset(self.generator, self.batch_size)
-        if op is not self.diffusion.op:
-            self.diffusion = dataclasses.replace(self.diffusion, op=op)
+        ``t`` ([accum, B] levels), ``x_end`` ([accum, B, H, W, C]) and
+        ``rng`` (per microbatch, an operator state of
+        ``op.sample_rng_state``) replace the generator's draws; the tests
+        use them to replay the JAX Trainer's draws."""
+        self._maybe_reset_op()
+        op = self.diffusion.op
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.accum):
             x = batch[i]
-            if self.diffusion.op.sample_x_end(self.generator, x) is not None:
-                raise NotImplementedError(
-                    "operators that draw their own endpoint are not ported yet; "
-                    "see ROADMAP.md section 1, item 8")
+            x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
+                       else x_end[i])
             fn = self._denoise_fn(self.model)
             loss = self.diffusion.loss(fn, x, self.generator,
-                                       t=None if t is None else t[i])
+                                       t=None if t is None else t[i], x_end=x_end_i,
+                                       rng=None if rng is None else rng[i])
             loss.backward()  # sums into .grad, as the JAX scan sums grads
             loss_sum += loss.detach()
         params = [p for p in self.model.parameters() if p.grad is not None]
@@ -266,9 +277,12 @@ class Trainer:
         og = torch.from_numpy(og_np).to(self.device)
         self.ema_model.eval()
         d = self.diffusion
+        gen = torch.Generator(device=self.device).manual_seed(self.step)
         with torch.inference_mode():
-            res = sample(d, self._denoise_fn(self.ema_model), prepare_start(d, og),
-                         generator=torch.Generator(device=self.device).manual_seed(self.step))
+            # an operator that owns its endpoint draws it (train.py:326-336)
+            x_end = d.op.sample_x_end(gen, og)
+            res = sample(d, self._denoise_fn(self.ema_model),
+                         prepare_start(d, og, x_end=x_end), x_end=x_end, generator=gen)
         for name, imgs in [("og", og_np), ("xt", res.xt),
                            ("direct_recons", res.direct_recons), ("sample", res.img)]:
             if torch.is_tensor(imgs):

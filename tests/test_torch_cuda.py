@@ -12,7 +12,8 @@ import torch
 
 from colddiff_torch.models import UnetConvNext
 from colddiff_torch.ops import convnext_front as front_mod
-from colddiff_torch.ops.convnext_front import SMALL_C, convnext_front, convnext_front_plain
+from colddiff_torch.ops.convnext_front import (MAX_CHANNELS, SMALL_C, TILE_MAX_CHANNELS,
+                                              convnext_front, convnext_front_plain)
 
 
 @pytest.fixture
@@ -59,6 +60,14 @@ FRONT_CASES += [(b, c, h, w, norm, with_cond)
 FRONT_CASES += [(b, c, 37, 70, norm, norm) for b, c in
                 ((16, 33), (16, 64), (8, 100), (8, 128), (4, 200), (4, 256), (2, 300),
                  (2, 512)) for norm in (True, False)]
+# the wide-C kernels (C > 1024), at the same edges: C just past the tile
+# kernel, the 16*dim fronts of dim = 80, 96, 128 and 256, and C not a
+# multiple of their 32-channel chunk (1025)
+FRONT_CASES += [(b, c, h, w, norm, with_cond)
+                for c in (1025, 1280, 1536, 2048, 4096)
+                for h, w in ((9, 11), (130, 7), (17, 33), (5, 3), (1, 1))
+                for b, norm, with_cond in ((1, True, True), (3, True, False),
+                                           (1, False, True), (3, False, False))]
 
 
 @pytest.mark.cuda
@@ -67,11 +76,13 @@ FRONT_CASES += [(b, c, 37, 70, norm, norm) for b, c in
 def test_kernel_matches_plain(cuda, dtype, b, c, h, w, norm, with_cond):
     gen = torch.Generator(device=cuda).manual_seed(0)
     args = _front_args(gen, b, c, h, w, with_cond, dtype, cuda)
-    before, small_before = convnext_front.launches, convnext_front.small_c_launches
+    before = (convnext_front.launches, convnext_front.small_c_launches,
+              convnext_front.wide_c_launches)
     got = convnext_front(*args, norm=norm)
     torch.cuda.synchronize()
-    assert convnext_front.launches == before + 1
-    assert convnext_front.small_c_launches == small_before + (c < SMALL_C)
+    assert convnext_front.launches == before[0] + 1
+    assert convnext_front.small_c_launches == before[1] + (c < SMALL_C)
+    assert convnext_front.wide_c_launches == before[2] + (c > TILE_MAX_CHANNELS)
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     want = convnext_front_plain(*[None if a is None else a.float() for a in args], norm=norm)
     # fp32: summation order only; bf16: one rounding of outputs up to ~4
@@ -106,6 +117,37 @@ def test_cuda_tensors_never_fall_back(cuda):
     args[0] = args[0].contiguous()  # NCHW memory, not channels_last
     with pytest.raises(ValueError):
         convnext_front(*args)
+
+
+@pytest.mark.cuda
+def test_channels_above_the_limit_raise(cuda):
+    """Past MAX_CHANNELS the wrapper raises, naming the limit; it never runs
+    the plain version on a CUDA tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = _front_args(gen, 1, MAX_CHANNELS + 1, 2, 2, True, torch.float32, cuda)
+    before = convnext_front.launches
+    with pytest.raises(ValueError, match=rf"1\.\.{MAX_CHANNELS} channels \(MAX_CHANNELS\)"):
+        convnext_front(*args)
+    assert convnext_front.launches == before
+
+
+@pytest.mark.cuda
+def test_dim80_unet_gpu_matches_cpu(cuda):
+    """UnetConvNext(dim=80) has a 1280-channel front at ups.0.0 (16*dim),
+    which the wide-C kernels take; fp32 at 128 px, rel L2 <= 1e-3 as
+    chip_smoke.py phase 4 holds the flagship."""
+    torch.manual_seed(0)
+    model = UnetConvNext(dim=80, dim_mults=(1, 2, 4, 8)).eval()
+    x = torch.rand(1, 128, 128, 3) * 2 - 1
+    t = torch.tensor([5])
+    with torch.inference_mode():
+        want = model(x, t)
+        before, wide = convnext_front.launches, convnext_front.wide_c_launches
+        got = model.to(cuda)(x.to(cuda), t.to(cuda)).cpu()
+    assert convnext_front.launches == before + 17
+    assert convnext_front.wide_c_launches == wide + 1
+    rel = ((got.double() - want.double()).norm() / want.double().norm()).item()
+    assert rel <= 1e-3
 
 
 @pytest.mark.cuda

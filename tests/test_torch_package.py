@@ -46,7 +46,10 @@ def test_every_submodule_imports_without_building():
     assert {"colddiff_torch.ops.convnext_front", "colddiff_torch.sampling",
             "colddiff_torch.models.unet_convnext", "colddiff_torch.train",
             "colddiff_torch.ops.bisect_mosaic", "colddiff_torch.scripts.bisect_mosaic",
-            "colddiff_torch.data.datasets", "colddiff_torch.utils"} <= set(names)
+            "colddiff_torch.data.datasets", "colddiff_torch.utils",
+            "colddiff_torch.operators.decolor", "colddiff_torch.operators.fade",
+            "colddiff_torch.operators.fade_generation",
+            "colddiff_torch.operators.resolution", "colddiff_torch.ops.image"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build.load_library.cache_info().currsize == 0  # no nvcc, no dlopen

@@ -34,11 +34,13 @@ checks it, in phases:
      their entry point, against their plain versions, with device times
      over a run, bounds and, where one exists, a library call's time; and
      the launch floor, an empty ``torch.cuda._sleep(0)`` timed the same way;
- 10. the wide-C front (C > 1024): the kernels against their plain version at
-     (16,16,16,1280), (16,16,16,2048) and (2,8,8,4096), fp32 and bf16; the
-     (16,16,16,1280) row timed as in phase 3; a ``UnetConvNext(dim=80)``
-     fp32 forward at 128 px on the GPU vs on the CPU (its ups.0.0 front has
-     1280 channels), with the launch counts;
+ 10. the wide-C front (C > 1024), the tile kernel's cluster form: against
+     its plain version at (16,16,16,1280), (16,16,16,2048), (2,8,8,4096)
+     and (2,8,8,8192) (a cluster of 8), fp32 and bf16, each row with its
+     cluster configuration, timed as in phase 3, and checked to allocate
+     nothing but its output; a ``UnetConvNext(dim=80)`` fp32 forward at
+     128 px on the GPU vs on the CPU (its ups.0.0 front has 1280 channels),
+     with the launch counts;
  11-15. the reference's other published workflows (docs/USAGE.md:62-84),
      each with the flagship UNet (random seeded weights, bf16 compute, fp32
      degrade math, B=16): prepare_start + sample timed (images/s, peak
@@ -102,8 +104,8 @@ from colddiff_torch.models.layers import ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
-from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, convnext_front,
-                                              convnext_front_plain)
+from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, cluster_config,
+                                              convnext_front, convnext_front_plain)
 from colddiff_torch.ops.image import rgb2lab
 from colddiff_torch.sampling import all_sample, prepare_start, sample
 from colddiff_torch.scripts import bisect_mosaic as probe_script
@@ -123,7 +125,8 @@ TRAIN_GRAD_REL_L2 = 1e-3  # cuDNN vs oneDNN summation orders, as in phase 4
 TRAIN_STEPS = 10
 ACCUM = 2
 PROBE_ATOL = 1e-5  # fp32 summation order of the two sums
-WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096))  # (B, H, W, C)
+# (B, H, W, C); clusters of 5, 8, 8 and 8 blocks
+WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096), (2, 8, 8, 8192))
 WIDE_DIM = 80  # UnetConvNext(dim=80): a 16 * 80 = 1280-channel front at ups.0.0
 DEGRADE_REL = 1e-5  # an operator's degrade on the card vs the CPU, relative to max |y|
 TRAJ_STRIDE = 10
@@ -310,6 +313,12 @@ def kernel_label(c: int) -> str:
     return "small_c" if c < SMALL_C else "tile" if c <= TILE_MAX_CHANNELS else "wide_c"
 
 
+def cluster_label(cl: dict) -> str:
+    """One line for a ``cluster_config`` dict."""
+    return (f"k={cl['k']} S={cl['slab']} tile {cl['tile'][0]}x{cl['tile'][1]} "
+            f"R={cl['run']} CK={cl['chunk']}")
+
+
 def check_fronts(shapes, batch: int, device, timed: bool):
     """Phase 3: kernel vs plain at every block front, fp32 and bf16; with
     ``timed``, each front's device, call, plain and library times and its
@@ -458,22 +467,42 @@ def train_main_path(device, folder: str):
     return losses, step_s, launches, small, peak, snap_s, bitwise
 
 
+def call_allocation(fn) -> tuple:
+    """(the peak bytes one call of ``fn`` allocates, the bytes it leaves
+    allocated, its output's bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base,
+            out.untyped_storage().nbytes())
+
+
 def wide_c_fronts(device, cpu_unet_input):
-    """Phase 10: the wide-C kernels against their plain version at
-    WIDE_SHAPES (cond and LayerNorm, as ups.0.0), a phase-3 row for the
-    first, and the dim=80 UNet on the GPU vs the CPU.  Returns (rows, worst
-    fp32 error, worst bf16 error, rel L2, launches, small-C launches, wide-C
-    launches)."""
+    """Phase 10: the cluster form against its plain version at every
+    WIDE_SHAPES entry (cond and LayerNorm, as ups.0.0), each with its
+    cluster configuration, a phase-3 row of times and a check that one
+    call allocates its output alone (no workspace); then the dim=80 UNet
+    on the GPU vs the CPU.  Returns (rows, worst fp32 error, worst bf16
+    error, rel L2, launches, small-C launches, wide-C launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows, worst32, worst16 = [], 0.0, 0.0
-    for i, (b, h, w, c) in enumerate(WIDE_SHAPES):
+    for b, h, w, c in WIDE_SHAPES:
         args = front_args(gen, b, c, h, w, True, device)
         a16, err32, err16 = check_front(args, True, f"C={c} {h}x{w} B={b}")
         worst32, worst16 = max(worst32, err32), max(worst16, err16)
         row = dict(front="wide_c", shape=[b, h, w, c], norm=True, cond=True,
                    kernel=kernel_label(c), max_abs_err_fp32=err32, max_abs_err_bf16=err16)
-        if i == 0:
-            time_front(row, args, a16, b, h, w, c, True, True)
+        for tag, a in (("fp32", args), ("bf16", a16)):
+            row["cluster_" + tag] = cluster_config(c, a[0].dtype)
+            peak, kept, out_bytes = call_allocation(lambda: convnext_front(*a))
+            if not peak == kept == out_bytes:
+                raise AssertionError(f"wide-C front {row['shape']} {tag}: a call allocated "
+                                     f"{peak} bytes at its peak and kept {kept}; its "
+                                     f"output has {out_bytes}")
+            row["alloc_bytes_" + tag] = peak
+        time_front(row, args, a16, b, h, w, c, True, True)
         rows.append(row)
         log("  front", json.dumps(row))
         del args, a16
@@ -744,8 +773,18 @@ def probe_kernels(device):
     torch.cuda.synchronize(device)
     launches = [w.launches for w in wrappers]
     a = probe_script.inputs(device)
-    shift = a["x"].shape[-1] - probe_script.ROLL
+    width = a["x"].shape[-1]
+    shift = width - probe_script.ROLL
     ones = torch.ones(1, 1, probe_ops.WINDOW, 1, device=device)
+    # roll_slice rolls left by ROLL and keeps SPLIT lanes of it: they never
+    # wrap (SPLIT + ROLL <= width), so the probe is one fixed gather
+    if probe_script.SPLIT + probe_script.ROLL > width:
+        raise AssertionError("roll_slice wraps: it is not one fixed gather")
+    gather = torch.cat([torch.arange(probe_script.ROLL, probe_script.SPLIT + probe_script.ROLL),
+                        torch.arange(probe_script.SPLIT, width)]).to(device)
+    if not torch.equal(a["x"].index_select(-1, gather),
+                       probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT)):
+        raise AssertionError("roll_slice is not the gather index_select takes")
     # (kernel, plain, library call or None, tolerance, input, flops, replaces)
     calls = [
         (lambda: probe_ops.probe_roll(a["x"], shift),
@@ -753,8 +792,11 @@ def probe_kernels(device):
          lambda: torch.roll(a["x"], shift, -1), 0.0, a["x"], 0,
          "scripts/bisect_mosaic.py:37"),
         (lambda: probe_ops.probe_roll_slice(a["x"], shift, probe_script.SPLIT),
-         lambda: probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT), None, 0.0,
-         a["x"], 0, "scripts/bisect_mosaic.py:42"),
+         lambda: probe_ops.roll_slice_plain(a["x"], shift, probe_script.SPLIT),
+         lambda: a["x"].index_select(-1, gather), 0.0, a["x"], 0,
+         "scripts/bisect_mosaic.py:42"),
+        # no library call: x minus its mean over each group of 64 lanes takes
+        # two PyTorch calls (the mean, then the subtraction)
         (lambda: probe_ops.probe_masked_norm(a["xn"]),
          lambda: probe_ops.masked_norm_plain(a["xn"]), None, PROBE_ATOL, a["xn"],
          2 * a["xn"].numel(), "scripts/bisect_mosaic.py:49"),
@@ -942,14 +984,19 @@ def main() -> int:
         raise AssertionError(f"dim={WIDE_DIM} UNet: rel L2 {wide_rel}, launches "
                              f"{(wide_all, wide_small, wide_launches)}, expected (17, 1, 1)")
     w0 = wide_rows[0]
-    log(f"[10] wide-C kernels == plain at {[r['shape'] for r in wide_rows]}: fp32 max err "
-        f"{wide32:.3e} (<= {FRONT_FP32_ATOL}), bf16 max err {wide16:.3e}; {w0['shape']}: "
-        + "; ".join(f"{tag} {w0['ms_' + tag] * 1e3:.3f} us (call {w0['call_ms_' + tag]:.4f} "
-                    f"ms) vs library {w0['library_ms_' + tag] * 1e3:.3f} us, plain "
-                    f"{w0['plain_ms_' + tag] * 1e3:.3f} us, bound {w0['bound_us_' + tag]:.3f} "
-                    f"us ({w0['bound_by_' + tag]}, {100 * w0['bound_share_' + tag]:.2f}%)"
-                    for tag in ("fp32", "bf16"))
-        + f"; UnetConvNext(dim={WIDE_DIM}) fp32 cuda vs cpu rel L2 {wide_rel:.3e} (<= "
+    log(f"[10] cluster form == plain at {[r['shape'] for r in wide_rows]}: fp32 max err "
+        f"{wide32:.3e} (<= {FRONT_FP32_ATOL}), bf16 max err {wide16:.3e}; each call "
+        f"allocated its output alone")
+    for r in wide_rows:
+        log(f"[10] {r['shape']}: "
+            + "; ".join(f"{tag} ({cluster_label(r['cluster_' + tag])}) "
+                        f"{r['ms_' + tag] * 1e3:.3f} us (call {r['call_ms_' + tag]:.4f} "
+                        f"ms) vs library {r['library_ms_' + tag] * 1e3:.3f} us, plain "
+                        f"{r['plain_ms_' + tag] * 1e3:.3f} us, bound "
+                        f"{r['bound_us_' + tag]:.3f} us ({r['bound_by_' + tag]}, "
+                        f"{100 * r['bound_share_' + tag]:.2f}%)" for tag in ("fp32", "bf16"))
+            + (f"; host-paced runs: {r['host_paced']}" if "host_paced" in r else ""))
+    log(f"[10] UnetConvNext(dim={WIDE_DIM}) fp32 cuda vs cpu rel L2 {wide_rel:.3e} (<= "
         f"{UNET_REL_L2}), front launches {wide_all}, small-C {wide_small}, wide-C "
         f"{wide_launches}; card: {card}")
 
@@ -976,11 +1023,12 @@ def main() -> int:
     del model16
     log("[11-16] " + json.dumps(flows))
 
-    def front_entry(name, row, launched, train_launched, max_abs_err):
+    def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16
         (the main path's dtype); max_abs_err is fp32, over its fronts."""
         return {
-            "name": name, "route": "cuda", "source": "colddiff_torch/csrc/convnext_front.cu",
+            "name": name, "kernel": kernel, "route": "cuda",
+            "source": "colddiff_torch/csrc/convnext_front.cu",
             "replaces": "colddiff/ops/pallas/convnext_front.py:129",
             "launches": launched, "train_launches": train_launched,
             "max_abs_err": max_abs_err,
@@ -993,13 +1041,17 @@ def main() -> int:
     stem = next(r for r in rows if r["kernel"] == "small_c")
     level0 = next(r for r in rows if r["shape"][1:] == [IMG, IMG, 64] and r["cond"])
     kernels = [
-        front_entry("convnext_front_small_c", stem, small_launches, train_small,
+        front_entry("convnext_front_small_c", "convnext_front_small_c_kernel", stem,
+                    small_launches, train_small,
                     max(r["max_abs_err_fp32"] for r in rows if r["kernel"] == "small_c")),
-        front_entry("convnext_front", level0, launches - small_launches,
-                    train_launches - train_small,
+        front_entry("convnext_front", "convnext_front_tile_kernel", level0,
+                    launches - small_launches, train_launches - train_small,
                     max(r["max_abs_err_fp32"] for r in rows if r["kernel"] == "tile")),
         # launches: the dim=80 forward of phase 10, the path that has a C > 1024 front
-        front_entry("convnext_front_wide_c", w0, wide_launches, None, wide32),
+        front_entry("convnext_front_wide_c",
+                    "convnext_front_tile_kernel, cluster form (TileCfg SPLIT: k blocks a "
+                    "tile, LayerNorm sums through distributed shared memory), "
+                    + cluster_label(w0["cluster_bf16"]), w0, wide_launches, None, wide32),
     ] + [{
         "name": r["name"], "route": "cuda",
         "source": "colddiff_torch/csrc/bisect_mosaic.cu", "replaces": r["replaces"],

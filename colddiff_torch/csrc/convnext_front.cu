@@ -9,7 +9,8 @@
 // vector registers.  x and out are NHWC in memory (NCHW tensors in
 // channels_last format); taps, bias, conditioning and the LayerNorm
 // statistics are fp32 for fp32 and bf16 inputs, and the output rounds once.
-// Three paths, picked by C: small C, the tile kernel, and wide C.
+// Three paths, picked by C: small C, the tile kernel, and its cluster form
+// for wide C.
 //
 // Tile kernel (C >= 32, up to 1024).  What bounds it on the H100: operations
 // in bf16, bytes in fp32.  Each output costs 49 fp32 FMAs; at the
@@ -98,34 +99,46 @@
 // several outputs of one thread is the next step.  Measured times beside
 // these bounds are in PERF.md.
 //
-// Wide C (kTileMaxChannels < C <= kMaxChannels): the tile kernel keeps all C
-// channels of its tile in one block (the staged outputs and the LayerNorm),
-// so its shared memory grows with C, past the 227 KB a block may have.  Above
-// 1024 channels the front runs as two kernels over an fp32 workspace
-// [B,H,W,C] that the caller allocates:
-//   1. convnext_front_wide_conv_kernel: a block owns an 8x8 output tile of
-//      one image and one chunk of kWideCK = 32 channels (grid: tiles x
-//      chunks x B), stages the chunk's 14x14 input halo and its weights in
-//      shared memory as fp32 (zeros outside the image and beyond C), and
-//      each thread slides a register window of 8 outputs along W for one
-//      channel: a warp is 32 consecutive channels of one row, so its shared
-//      reads meet in no bank.  conv + bias + cond is written to the
-//      workspace in fp32, never rounded to the input dtype.
-//   2. convnext_front_wide_norm_kernel: one warp per pixel reads its C
-//      fp32 values three times (sum, then sum of squared deviations: the
-//      two-pass form with biased variance, fp32; then the normalized,
-//      scaled output, rounded once).  With norm = 0 it only rounds.
-// A simple design that is right: the workspace costs one fp32 write and
-// three reads (mostly from L2) per output beyond the tile kernel's traffic.
+// Wide C (kTileMaxChannels < C <= kMaxChannels): the tile kernel's cluster
+// form (TileCfg SPLIT).  One block holding all C channels of a tile would
+// need shared memory past the 227 KB a block may have, and a tile shrunk to
+// fit re-reads its halo and weights for few outputs (4x4 at C = 1024).  So
+// the k = ceil(C / S) blocks of a thread block cluster (k <= 8, the
+// portable size; grid k * tiles_x x tiles_y x B, cluster k x 1 x 1) share
+// one spatial tile, and the block of cluster rank r runs the tile kernel's
+// body on the slab of channels [r*S, min(C, (r+1)*S)): S = CAP, a multiple
+// of 128 channels, so the 16-byte cp.async halo copies and output stores
+// stay aligned; the last slab may be short, none is empty.  Only the
+// LayerNorm's per-pixel sums cross between blocks: each block sums its slab
+// (run_sum) into shared memory, and after a cluster barrier every block
+// adds the k slab sums through distributed shared memory in rank order, so
+// the k slabs of a pixel are normalized with bitwise the same mean and
+// rstd; the same again for the squared deviations; a last barrier keeps
+// each block's sums alive until its peers have read them.  Nothing goes
+// through device memory but one read of x (with its halo) and one write of
+// the output: no workspace.  The tile no longer shrinks as C grows: with
+// S = 256 up to C = 2048 (4x16 in bf16, 8x8 in fp32), 4x4 with S = 512
+// (256 threads) up to 4096 and with S = 1024 (512 threads) up to 8192; of
+// six variants timed in turns (PERF.md), these were the fastest or level.
+// Before the first launch at each k the launcher asks
+// cudaOccupancyMaxActiveClusters whether the card can place one; if not,
+// it returns the error rather than take another path.  Instantiations:
+// three configurations for each of fp32 and bf16.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kTileMaxChannels = 1024;  // the tile kernel's largest C
-constexpr int kMaxChannels = 8192;      // the wide-C kernels' largest C
+constexpr int kMaxChannels = 8192;      // the cluster form's largest C
+constexpr int kMaxCluster = 8;          // blocks of a cluster: the portable limit
 constexpr int kSmallCLimit = 32;  // C < kSmallCLimit takes the small-C kernel
 constexpr int kTile = 16;         // small-C output tile: kTile x kTile pixels
 constexpr int kHalo = kTile + 6;  // its input tile side (zero pad 3 each way)
@@ -169,6 +182,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The two halves of a cluster barrier: all threads of all blocks arrive,
+// then wait; the release / acquire order shared-memory accesses across it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 struct TileArgs {
   const void *x, *w, *bias, *cond, *gamma, *beta;
   void* out;
@@ -180,10 +202,13 @@ struct TileArgs {
 
 // A tile kernel configuration: runs of R outputs along W, NIT chunks of CK
 // channels, a TH x TW output tile; a thread for each of the (TH * TW / R)
-// runs and CK / 2 channel pairs, 32 accumulators each.
-template <int R_, int NIT_, int CK_, int TH_, int TW_>
+// runs and CK / 2 channel pairs, 2 * NIT * R accumulators each.  SPLIT: the
+// cluster form, where the blocks of a cluster share the tile and each holds
+// a slab of CAP channels.
+template <int R_, int NIT_, int CK_, int TH_, int TW_, bool SPLIT_ = false>
 struct TileCfg {
   static constexpr int R = R_, NIT = NIT_, CK = CK_, TH = TH_, TW = TW_;
+  static constexpr bool SPLIT = SPLIT_;
   static constexpr int HW = TW + 6;               // halo row length
   static constexpr int GK = CK / 2;               // threads per run
   static constexpr int CAP = NIT * CK;            // channels a block holds
@@ -195,9 +220,10 @@ struct TileCfg {
   static constexpr int THREADS = (TH * TW / R) * GK;  // one per run and channel pair
   static constexpr int MIN_BLOCKS = THREADS > 256 ? 1 : 2;
   static constexpr int RED = THREADS / 32 * R;        // partial sums of one pass
+  static constexpr int STATS = SPLIT ? 3 * TH * TW : 0;  // slab sums of two passes, totals
   template <typename T>
   static constexpr int smem_bytes() {
-    return (int)sizeof(T) * XS + (int)sizeof(float) * (49 * WP + 3 * CAP + 2 * RED);
+    return (int)sizeof(T) * XS + (int)sizeof(float) * (49 * WP + 3 * CAP + 2 * RED + STATS);
   }
 };
 using TileC64 = TileCfg<16, 1, 64, 8, 16>;
@@ -205,6 +231,15 @@ using TileC128 = TileCfg<8, 2, 64, 8, 8>;
 using TileC256 = TileCfg<8, 2, 128, 4, 8>;
 using TileC512 = TileCfg<4, 4, 128, 4, 4>;
 using TileC1024 = TileCfg<4, 4, 256, 4, 4>;
+// the cluster form, by the largest C it takes (kMaxCluster slabs of CAP).
+// Up to 2048 channels bf16 takes a 4x16 tile with R = 16 (fewer shared loads
+// per FMA; its 56 KB halo leaves room for two blocks an SM), fp32 an 8x8
+// tile (a 4x16 halo would be 112 KB, one block an SM).
+template <typename T>
+using SplitC2048 = std::conditional_t<sizeof(T) == 2, TileCfg<16, 2, 128, 4, 16, true>,
+                                      TileCfg<8, 2, 128, 8, 8, true>>;
+using SplitC4096 = TileCfg<4, 4, 128, 4, 4, true>;
+using SplitC8192 = TileCfg<4, 4, 256, 4, 4, true>;
 
 // One reduce-scatter step per level: with N partial sums a lane keeps N/2,
 // the upper half where its lane bit o is set, and adds its partner's.
@@ -256,6 +291,33 @@ __device__ __forceinline__ void run_sum(float (&v)[R], float* red) {
   }
 }
 
+// The cluster form's LayerNorm sums: v[r], this block's slab sum for pixel r
+// of its run (from run_sum), becomes the sum over the cluster's blocks,
+// added in rank order, so every block of a cluster gets bitwise the same
+// totals.  mine: this pass's [TH*TW] slab sums, read by the peers through
+// distributed shared memory after the cluster barrier; it is not written
+// again, and a block exits only after a last barrier.  tot: [TH*TW].
+template <typename Cfg>
+__device__ __forceinline__ void cluster_sum(float (&v)[Cfg::R], float* mine, float* tot,
+                                            int run, int g) {
+  constexpr int R = Cfg::R, P = Cfg::TH * Cfg::TW;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (g == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) mine[run * R + r] = v[r];
+  }
+  cluster.sync();  // every block's slab sums are in place
+  const unsigned k = cluster.num_blocks();
+  for (int p = threadIdx.x; p < P; p += Cfg::THREADS) {
+    float s = 0.f;
+    for (unsigned q = 0; q < k; ++q) s += cluster.map_shared_rank(mine, q)[p];
+    tot[p] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = tot[run * R + r];
+}
+
 template <typename T, typename Cfg>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
 convnext_front_tile_kernel(const TileArgs a) {
@@ -268,24 +330,33 @@ convnext_front_tile_kernel(const TileArgs a) {
   float* ws = reinterpret_cast<float*>(xs + Cfg::XS);  // [49][WP], tap-major, fp32
   float* vs = ws + 49 * WP;   // [3][CAP]: bias+cond, gamma, beta
   float* red = vs + 3 * CAP;  // [2][THREADS/32*R]: LayerNorm partial sums
+  float* stats = red + 2 * Cfg::RED;  // SPLIT: [3][TH*TW], see cluster_sum
   const int H = a.H, W = a.W, C = a.C;
-  const int nch = (C + CK - 1) / CK;  // chunks that hold channels (<= NIT)
+  // the block's channels [cs, cs + cn): all C, or the slab of its cluster rank
+  int tile_x = blockIdx.x, cs = 0;
+  if constexpr (Cfg::SPLIT) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    tile_x = blockIdx.x / cluster.num_blocks();
+    cs = cluster.block_rank() * CAP;
+  }
+  const int cn = C - cs < CAP ? C - cs : CAP;
+  const int nch = (cn + CK - 1) / CK;  // chunks that hold channels (<= NIT)
   const int tid = threadIdx.x;
   const int g = tid % GK, run = tid / GK;
   const int ty = run / (TW / R), tx0 = (run % (TW / R)) * R;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int x0 = tile_x * TW, y0 = blockIdx.y * TH;
   const int64_t b = blockIdx.z;
-  const T* xb = static_cast<const T*>(a.x) + b * H * W * C;
-  const T* w = static_cast<const T*>(a.w);
+  const T* xb = static_cast<const T*>(a.x) + b * H * W * C + cs;
+  const T* w = static_cast<const T*>(a.w) + cs * 49;
 
   for (int c = tid; c < CAP; c += NT) {
     float add = 0.f, gm = 0.f, bt = 0.f;
-    if (c < C) {
-      add = to_f32(static_cast<const T*>(a.bias)[c]);
-      if (a.cond != nullptr) add += to_f32(static_cast<const T*>(a.cond)[b * C + c]);
+    if (c < cn) {
+      add = to_f32(static_cast<const T*>(a.bias)[cs + c]);
+      if (a.cond != nullptr) add += to_f32(static_cast<const T*>(a.cond)[b * C + cs + c]);
       if (a.norm) {
-        gm = to_f32(static_cast<const T*>(a.gamma)[c]);
-        bt = to_f32(static_cast<const T*>(a.beta)[c]);
+        gm = to_f32(static_cast<const T*>(a.gamma)[cs + c]);
+        bt = to_f32(static_cast<const T*>(a.beta)[cs + c]);
       }
     }
     vs[c] = add;
@@ -301,13 +372,13 @@ convnext_front_tile_kernel(const TileArgs a) {
     if (j >= nch) continue;  // block-uniform
     if (j > 0) __syncthreads();  // the previous chunk's reads of xs and ws are done
     const int c0 = j * CK;
-    // the halo of channels c0 .. c0+CK-1, zeros outside the image and from C on
+    // the halo of channels c0 .. c0+CK-1, zeros outside the image and from cn on
     if (a.vec) {
       constexpr int upp = CK / U, total = (TH + 6) * HW * upp;
       for (int i = tid; i < total; i += NT) {
         const int p = i / upp, u = i % upp;
         const int yy = y0 - 3 + p / HW, xx = x0 - 3 + p % HW, c = c0 + u * U;
-        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < cn;
         cp_async16(xs + p * CK + u * U, in ? xb + ((int64_t)yy * W + xx) * C + c : xb,
                    in ? 16 : 0);
       }
@@ -315,7 +386,7 @@ convnext_front_tile_kernel(const TileArgs a) {
       for (int i = tid; i < Cfg::HALO; i += NT) {
         const int p = i / CK, c = c0 + i % CK;
         const int yy = y0 - 3 + p / HW, xx = x0 - 3 + p % HW;
-        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < cn;
         xs[i] = in ? xb[((int64_t)yy * W + xx) * C + c] : from_f32<T>(0.f);
       }
     }
@@ -323,7 +394,7 @@ convnext_front_tile_kernel(const TileArgs a) {
     // bytes a load where w is aligned; the run starts at a multiple of 64
     // channels), stored tap-major
     const T* wc = w + c0 * 49;
-    const int nw = (C - c0 < CK ? C - c0 : CK) * 49;  // elements that exist
+    const int nw = (cn - c0 < CK ? cn - c0 : CK) * 49;  // elements that exist
     if (a.wvec) {
       for (int i = tid * U; i < CK * 49; i += NT * U) {
         union {
@@ -376,7 +447,7 @@ convnext_front_tile_kernel(const TileArgs a) {
     }
   }
 
-  // + bias + cond; channels from C on hold 0 (zero x, weights and vectors)
+  // + bias + cond; channels from cn on hold 0 (zero x, weights and vectors)
   float part[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) part[r] = 0.f;
@@ -392,6 +463,7 @@ convnext_front_tile_kernel(const TileArgs a) {
   }
   if (a.norm) {  // block-uniform
     run_sum<R, GK>(part, red);
+    if constexpr (Cfg::SPLIT) cluster_sum<Cfg>(part, stats, stats + 2 * TH * TW, run, g);
     float mean[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -401,7 +473,7 @@ convnext_front_tile_kernel(const TileArgs a) {
 #pragma unroll
     for (int j = 0; j < NIT; ++j) {
       const int c = j * CK + 2 * g;
-      const float m0 = c < C ? 1.f : 0.f, m1 = c + 1 < C ? 1.f : 0.f;
+      const float m0 = c < cn ? 1.f : 0.f, m1 = c + 1 < cn ? 1.f : 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float d0 = (acc[j][r].x - mean[r]) * m0, d1 = (acc[j][r].y - mean[r]) * m1;
@@ -409,6 +481,10 @@ convnext_front_tile_kernel(const TileArgs a) {
       }
     }
     run_sum<R, GK>(part, red + Cfg::RED);
+    if constexpr (Cfg::SPLIT) {
+      cluster_sum<Cfg>(part, stats + TH * TW, stats + 2 * TH * TW, run, g);
+      cluster_arrive();  // this block's reads of its peers' sums are done
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) part[r] = rsqrtf(part[r] / (float)C + a.eps);
 #pragma unroll
@@ -425,7 +501,7 @@ convnext_front_tile_kernel(const TileArgs a) {
   }
 
   // stage the rounded outputs [TH*TW][CAP] in the halo buffer, then store
-  // each in-image pixel's C outputs
+  // each in-image pixel's cn outputs
   __syncthreads();  // every thread's reads of the last halo are done
 #pragma unroll
   for (int j = 0; j < NIT; ++j) {
@@ -435,9 +511,9 @@ convnext_front_tile_kernel(const TileArgs a) {
       store2(xs + (run * R + r) * CAP + j * CK + 2 * g, acc[j][r].x, acc[j][r].y);
   }
   __syncthreads();
-  T* ob = static_cast<T*>(a.out) + b * H * W * C;
+  T* ob = static_cast<T*>(a.out) + b * H * W * C + cs;
   if (a.vec) {
-    const int upp = C / U, total = TH * TW * upp;
+    const int upp = cn / U, total = TH * TW * upp;
     for (int i = tid; i < total; i += NT) {
       const int p = i / upp, u = i - p * upp;
       const int py = y0 + p / TW, px = x0 + p % TW;
@@ -446,12 +522,16 @@ convnext_front_tile_kernel(const TileArgs a) {
             *reinterpret_cast<const float4*>(xs + p * CAP + u * U);
     }
   } else {
-    const int total = TH * TW * C;
+    const int total = TH * TW * cn;
     for (int i = tid; i < total; i += NT) {
-      const int p = i / C, c = i - p * C;
+      const int p = i / cn, c = i - p * cn;
       const int py = y0 + p / TW, px = x0 + p % TW;
       if (py < H && px < W) ob[((int64_t)py * W + px) * C + c] = xs[p * CAP + c];
     }
+  }
+  // a block's sums stay in its shared memory until its peers have read them
+  if constexpr (Cfg::SPLIT) {
+    if (a.norm) cluster_wait();
   }
 }
 
@@ -464,9 +544,37 @@ cudaError_t launch_tile_cfg(const TileArgs& a, int B, cudaStream_t stream) {
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((a.W + Cfg::TW - 1) / Cfg::TW, (a.H + Cfg::TH - 1) / Cfg::TH, B);
-  kernel<<<grid, Cfg::THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+  const int k = Cfg::SPLIT ? (a.C + Cfg::CAP - 1) / Cfg::CAP : 1;  // blocks per tile
+  const dim3 grid(k * ((a.W + Cfg::TW - 1) / Cfg::TW), (a.H + Cfg::TH - 1) / Cfg::TH, B);
+  if constexpr (!Cfg::SPLIT) {
+    kernel<<<grid, Cfg::THREADS, smem, stream>>>(a);
+    return cudaGetLastError();
+  } else {
+    if (k > kMaxCluster) return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = k;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(Cfg::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    // before the first launch of each cluster size: can the card place one?
+    static bool placed[kMaxCluster + 1];
+    if (!placed[k]) {
+      int clusters = 0;
+      const cudaError_t e =
+          cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+      if (e != cudaSuccess) return e;
+      if (clusters == 0) return cudaErrorInvalidConfiguration;
+      placed[k] = true;
+    }
+    return cudaLaunchKernelEx(&cfg, kernel, a);
+  }
 }
 
 // Blocks of a TH x TW tile over the batch.
@@ -475,9 +583,18 @@ int64_t tile_blocks(int B, int H, int W) {
   return (int64_t)((W + Cfg::TW - 1) / Cfg::TW) * ((H + Cfg::TH - 1) / Cfg::TH) * B;
 }
 
-// 32 <= C <= kTileMaxChannels; w is [C, 49], the torch layout.  Takes the first
-// configuration that holds C and gives at least kMinBlocks blocks (or the
-// last).
+// kTileMaxChannels < C <= kMaxChannels: f(Cfg{}) for the cluster form
+// whose kMaxCluster slabs hold C.
+template <typename T, typename F>
+auto with_split_cfg(int C, F f) {
+  if (C <= kMaxCluster * SplitC2048<T>::CAP) return f(SplitC2048<T>{});
+  if (C <= kMaxCluster * SplitC4096::CAP) return f(SplitC4096{});
+  return f(SplitC8192{});
+}
+
+// 32 <= C <= kMaxChannels; w is [C, 49], the torch layout.  Up to
+// kTileMaxChannels, takes the first configuration that holds C and gives at
+// least kMinBlocks blocks (or TileC1024); above, the cluster form.
 template <typename T>
 cudaError_t launch_tile(TileArgs a, int B, cudaStream_t stream) {
   if (B > 65535 || a.H > 65535) return cudaErrorInvalidValue;
@@ -493,7 +610,10 @@ cudaError_t launch_tile(TileArgs a, int B, cudaStream_t stream) {
     return launch_tile_cfg<T, TileC256>(a, B, stream);
   if (C <= TileC512::CAP && tile_blocks<TileC512>(B, H, W) >= kMinBlocks)
     return launch_tile_cfg<T, TileC512>(a, B, stream);
-  return launch_tile_cfg<T, TileC1024>(a, B, stream);
+  if (C <= kTileMaxChannels) return launch_tile_cfg<T, TileC1024>(a, B, stream);
+  return with_split_cfg<T>(C, [&](auto cfg) {
+    return launch_tile_cfg<T, decltype(cfg)>(a, B, stream);
+  });
 }
 
 // Shared floats of the small-C kernel: the halo tile [kHalo*kHalo][CP], the
@@ -681,145 +801,22 @@ cudaError_t launch_small_c(const void* x, const void* w, const void* bias, const
 #undef COLDDIFF_SMALL_C_LAUNCH
 }
 
-constexpr int kWideCK = 32;              // channels per block of the wide-C conv
-constexpr int kWideTile = 8;             // its output tile: kWideTile x kWideTile
-constexpr int kWideHalo = kWideTile + 6;  // the input tile's side
-constexpr int kWideNormWarps = 8;        // pixels per block of the wide-C norm
-
-template <typename T>
-__global__ void __launch_bounds__(kWideCK * kWideTile)
-convnext_front_wide_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                                const T* __restrict__ bias, const T* __restrict__ cond,
-                                float* __restrict__ ws, int H, int W, int C, int tiles_x) {
-  __shared__ float xs[kWideHalo * kWideHalo][kWideCK];
-  __shared__ float wsh[49][kWideCK + 1];
-  __shared__ float add[kWideCK];
-  const int tid = threadIdx.x;
-  const int x0 = (blockIdx.x % tiles_x) * kWideTile, y0 = (blockIdx.x / tiles_x) * kWideTile;
-  const int c0 = blockIdx.y * kWideCK;
-  const int64_t b = blockIdx.z;
-  const T* xb = x + b * H * W * C;
-
-  // the chunk's halo: a warp reads 32 consecutive channels of one pixel
-  for (int i = tid; i < kWideHalo * kWideHalo * kWideCK; i += kWideCK * kWideTile) {
-    const int p = i / kWideCK, c = c0 + i % kWideCK;
-    const int yy = y0 - 3 + p / kWideHalo, xx = x0 - 3 + p % kWideHalo;
-    const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W && c < C;
-    xs[p][i % kWideCK] = in ? to_f32(xb[((int64_t)yy * W + xx) * C + c]) : 0.f;
-  }
-  // the weights [C, 49], read in their order, stored tap-major
-  for (int i = tid; i < kWideCK * 49; i += kWideCK * kWideTile) {
-    const int cl = i / 49, tap = i % 49;
-    wsh[tap][cl] = c0 + cl < C ? to_f32(w[(int64_t)(c0 + cl) * 49 + tap]) : 0.f;
-  }
-  if (tid < kWideCK) {
-    const int c = c0 + tid;
-    float v = 0.f;
-    if (c < C) {
-      v = to_f32(bias[c]);
-      if (cond != nullptr) v += to_f32(cond[b * C + c]);
-    }
-    add[tid] = v;
-  }
-  __syncthreads();
-
-  // one thread: channel cl of the kWideTile outputs of row ty
-  const int cl = tid % kWideCK, ty = tid / kWideCK;
-  float acc[kWideTile];
-#pragma unroll
-  for (int r = 0; r < kWideTile; ++r) acc[r] = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 7; ++dy) {
-    float wv[7];
-#pragma unroll
-    for (int dx = 0; dx < 7; ++dx) wv[dx] = wsh[dy * 7 + dx][cl];
-#pragma unroll
-    for (int k = 0; k < kWideTile + 6; ++k) {
-      const float xv = xs[(ty + dy) * kWideHalo + k][cl];
-#pragma unroll
-      for (int dx = 0; dx < 7; ++dx) {
-        const int r = k - dx;
-        if (r >= 0 && r < kWideTile) acc[r] = fmaf(xv, wv[dx], acc[r]);
-      }
-    }
-  }
-  const int c = c0 + cl, py = y0 + ty;
-  if (c >= C || py >= H) return;
-#pragma unroll
-  for (int r = 0; r < kWideTile; ++r) {
-    const int px = x0 + r;
-    if (px < W) ws[((b * H + py) * W + px) * C + c] = acc[r] + add[cl];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kWideNormWarps)
-convnext_front_wide_norm_kernel(const float* __restrict__ ws, const T* __restrict__ gamma,
-                                const T* __restrict__ beta, T* __restrict__ out,
-                                int64_t pixels, int C, int norm, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t p = (int64_t)blockIdx.x * kWideNormWarps + threadIdx.x / 32;
-  if (p >= pixels) return;  // a whole warp: the shuffles below stay full
-  const float* h = ws + p * C;
-  T* o = out + p * C;
-  if (!norm) {
-    for (int c = lane; c < C; c += 32) o[c] = from_f32<T>(h[c]);
-    return;
-  }
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += h[c];
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  const float mean = s / (float)C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = h[c] - mean;
-    v = fmaf(d, d, v);
-  }
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  const float rstd = rsqrtf(v / (float)C + eps);
-  for (int c = lane; c < C; c += 32)
-    o[c] = from_f32<T>((h[c] - mean) * rstd * to_f32(gamma[c]) + to_f32(beta[c]));
-}
-
-// kTileMaxChannels < C <= kMaxChannels; ws: B*H*W*C floats.
-template <typename T>
-cudaError_t launch_wide(const void* x, const void* w, const void* bias, const void* cond,
-                        const void* gamma, const void* beta, void* out, float* ws, int B,
-                        int H, int W, int C, int norm, float eps, cudaStream_t stream) {
-  if (B > 65535 || ws == nullptr) return cudaErrorInvalidValue;
-  const int tiles_x = (W + kWideTile - 1) / kWideTile;
-  const int64_t tiles = (int64_t)tiles_x * ((H + kWideTile - 1) / kWideTile);
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (C + kWideCK - 1) / kWideCK, B);
-  convnext_front_wide_conv_kernel<T><<<grid, kWideCK * kWideTile, 0, stream>>>(
-      (const T*)x, (const T*)w, (const T*)bias, (const T*)cond, ws, H, W, C, tiles_x);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int64_t pixels = (int64_t)B * H * W;
-  const int64_t blocks = (pixels + kWideNormWarps - 1) / kWideNormWarps;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  convnext_front_wide_norm_kernel<T><<<(unsigned)blocks, 32 * kWideNormWarps, 0, stream>>>(
-      ws, (const T*)gamma, (const T*)beta, (T*)out, pixels, C, norm, eps);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry point, bound with ctypes by colddiff_torch/ops/convnext_front.py.
 // x, out: [B,H,W,C] (NHWC memory); w: [C,49] (the torch layout [C,1,7,7]);
 // bias, gamma, beta: [C]; cond: [B,C] or NULL; gamma/beta are read only
 // when norm != 0.  The kernel follows C: C < 32 launches the small-C
-// kernel, 32 <= C <= 1024 the tile kernel (wider C: the entry point below).
-// dtype: 0 = float32, 1 = bfloat16 (all tensors share it).
-// Returns the cudaError_t of the launch (0 = launched).
+// kernel, 32 <= C <= 1024 the tile kernel, 1024 < C <= 8192 its cluster
+// form.  dtype: 0 = float32, 1 = bfloat16 (all tensors share it).
+// Returns the cudaError_t of the launch (0 = launched); for a cluster
+// configuration that the card cannot place, cudaErrorInvalidConfiguration.
 extern "C" int colddiff_convnext_front(const void* x, const void* w, const void* bias,
                                        const void* cond, const void* gamma,
                                        const void* beta, void* out, int B, int H, int W,
                                        int C, int norm, float eps, int dtype,
                                        void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kTileMaxChannels)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxChannels)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (C < kSmallCLimit) {
@@ -837,22 +834,20 @@ extern "C" int colddiff_convnext_front(const void* x, const void* w, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// The same front for 1024 < C <= 8192 (the wide-C kernels); the arguments
-// are those above plus ws, an fp32 workspace of B*H*W*C floats on the same
-// device, which holds conv + bias + cond between the two kernels.
-extern "C" int colddiff_convnext_front_wide(const void* x, const void* w, const void* bias,
-                                            const void* cond, const void* gamma,
-                                            const void* beta, void* out, void* ws, int B,
-                                            int H, int W, int C, int norm, float eps,
-                                            int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= kTileMaxChannels || C > kMaxChannels)
+// The cluster form's configuration for kTileMaxChannels < C <= kMaxChannels
+// in dtype (0 = float32, 1 = bfloat16): cfg[0..5] = blocks per cluster k,
+// slab S, tile TH, TW, run R, chunk CK.  Returns 0, or cudaErrorInvalidValue
+// for a C or dtype that takes no cluster form.
+extern "C" int colddiff_convnext_front_cluster(int C, int dtype, int* cfg) {
+  if (C <= kTileMaxChannels || C > kMaxChannels || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch_wide<float>(x, w, bias, cond, gamma, beta, out, (float*)ws, B, H, W, C,
-                                   norm, eps, s);
-  if (dtype == 1)
-    return (int)launch_wide<__nv_bfloat16>(x, w, bias, cond, gamma, beta, out, (float*)ws, B,
-                                           H, W, C, norm, eps, s);
-  return (int)cudaErrorInvalidValue;
+  const auto describe = [&](auto tag) {
+    using Cfg = decltype(tag);
+    const int v[6] = {(C + Cfg::CAP - 1) / Cfg::CAP, Cfg::CAP, Cfg::TH, Cfg::TW, Cfg::R,
+                      Cfg::CK};
+    for (int i = 0; i < 6; ++i) cfg[i] = v[i];
+    return 0;
+  };
+  return dtype == 0 ? with_split_cfg<float>(C, describe)
+                    : with_split_cfg<__nv_bfloat16>(C, describe);
 }

@@ -6,12 +6,12 @@
 the LayerNorm runs over channels with biased variance; ``norm=False`` skips
 it and ``cond=None`` adds only ``b_dw``.
 
-On a CUDA tensor this launches one of two hand-written Hopper kernels in
+On a CUDA tensor this launches one of the hand-written Hopper kernels in
 ``colddiff_torch/csrc/convnext_front.cu``, which replace the TPU kernel of
 ``colddiff/ops/pallas/convnext_front.py`` (``_pallas_forward_packed`` ->
 ``_kernel_packed``); the C entry point picks the kernel by the channel
-count.  Both accumulate taps and statistics in fp32 for fp32 and bf16
-inputs and round the output once.
+count.  Each accumulates taps and statistics in fp32 for fp32 and bf16
+inputs and rounds the output once.
 
 - C < 32 (``SMALL_C``; the C=3 stem, C=1, narrow test UNets): the small-C
   kernel, one thread per output pixel holding all C channels, over a 16x16
@@ -22,12 +22,14 @@ inputs and round the output once.
   and each thread slides a register window over W for one channel pair,
   so the LayerNorm closes inside the block.
 - C > 1024, up to ``MAX_CHANNELS`` (the 16*dim front of a ``dim`` > 64
-  UNet): the wide-C kernels.  A first kernel writes conv + bias + cond
-  per chunk of 32 channels to an fp32 workspace [B, H, W, C], which this
-  wrapper allocates; a second normalizes each pixel's C values from it
-  (one warp per pixel, two-pass fp32 statistics).  A larger C raises.
+  UNet): the tile kernel's cluster form.  The k <= 8 blocks of a thread
+  block cluster share one spatial tile, each holds a slab of the channels
+  (256, 512 or 1024 by C; the last may be short), and the LayerNorm's
+  per-pixel sums cross between them through distributed shared memory;
+  the call allocates only its output.
+  A larger C raises.
 
-Both take the weights in their torch layout [C, 49], so a call whose w is
+All take the weights in their torch layout [C, 49], so a call whose w is
 already contiguous in the compute dtype copies nothing: the kernel reads
 ``w``'s own storage.
 
@@ -55,11 +57,11 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["convnext_front", "convnext_front_plain", "MAX_CHANNELS", "SMALL_C",
-           "TILE_MAX_CHANNELS"]
+__all__ = ["convnext_front", "convnext_front_plain", "cluster_config", "MAX_CHANNELS",
+           "SMALL_C", "TILE_MAX_CHANNELS"]
 
 TILE_MAX_CHANNELS = 1024  # the tile kernel's largest C (kTileMaxChannels in the .cu)
-MAX_CHANNELS = 8192  # the wide-C kernels' largest C (kMaxChannels)
+MAX_CHANNELS = 8192  # the cluster form's largest C (kMaxChannels in the .cu)
 SMALL_C = 32  # C < SMALL_C launches the small-C kernel (kSmallCLimit in the .cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,13 +100,20 @@ def _kernel():
     return fn
 
 
-@functools.cache
-def _wide_kernel():
-    fn = _build.load_library().colddiff_convnext_front_wide
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def cluster_config(c: int, dtype: torch.dtype) -> dict:
+    """The cluster form's configuration at ``c`` channels (1024 < c <=
+    ``MAX_CHANNELS``) in ``dtype``, as the kernel library picks it: blocks
+    per cluster ``k``, slab ``slab``, tile ``tile`` (H x W), run ``run``
+    along W, chunk ``chunk``.  Loads (and builds) the library."""
+    fn = _build.load_library().colddiff_convnext_front_cluster
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    return fn
+    cfg = (ctypes.c_int * 6)()
+    if dtype not in _DTYPE_CODE or fn(c, _DTYPE_CODE[dtype], cfg) != 0:
+        raise ValueError(f"convnext_front: C={c} in {dtype} does not take the cluster "
+                         f"form ({TILE_MAX_CHANNELS} < C <= {MAX_CHANNELS}, fp32 or bf16)")
+    k, slab, th, tw, run, chunk = cfg
+    return dict(k=k, slab=slab, tile=[th, tw], run=run, chunk=chunk)
 
 
 def _check_vector(name: str, t: Optional[torch.Tensor], shape: tuple,
@@ -155,14 +164,7 @@ def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     tail = (int(norm), float(eps), _DTYPE_CODE[dt])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if c <= TILE_MAX_CHANNELS:
-            err = _kernel()(*ptrs, bsz, hgt, wid, c, *tail, stream)
-        else:
-            # conv + bias + cond in fp32 between the two wide-C kernels; freed
-            # to the caching allocator on return, whose next use on this
-            # stream runs after them
-            ws = torch.empty(bsz * hgt * wid * c, dtype=torch.float32, device=x.device)
-            err = _wide_kernel()(*ptrs, ws.data_ptr(), bsz, hgt, wid, c, *tail, stream)
+        err = _kernel()(*ptrs, bsz, hgt, wid, c, *tail, stream)
     if err != 0:
         raise RuntimeError(f"convnext_front kernel launch failed: cudaError {err}")
     convnext_front.launches += 1
@@ -207,8 +209,8 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
 
     ``convnext_front.launches`` counts the launches of every kernel,
     ``convnext_front.small_c_launches`` those of the small-C kernel alone and
-    ``convnext_front.wide_c_launches`` those of the wide-C pair (one per
-    call; CPU calls and comparisons made through
+    ``convnext_front.wide_c_launches`` those with C > 1024, the cluster
+    form (one per call; CPU calls and comparisons made through
     :func:`convnext_front_plain` do not count).
     """
     if norm and (gamma is None or beta is None):

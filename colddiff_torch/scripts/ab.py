@@ -3,6 +3,7 @@
     python -m colddiff_torch.scripts.ab fronts ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab main ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab sample ROOT [ROOT ...]
+    python -m colddiff_torch.scripts.ab profile ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a checkout (an unpacked ``git archive``
 will do) with its own ``chip_smoke.py`` and ``colddiff_torch/``.  The roots
@@ -15,16 +16,21 @@ Each child prints one JSON line per measurement:
   conditioning, fp32 and bf16: the small-C kernel at 128 px for the stem
   (C=3, ``norm=False``) and C = 8, 16, 31, and the tile kernel at the
   flagship's C >= 32 shapes (C, H) = (64, 128), (64, 64), (128, 64),
-  (256, 64), (256, 32), (512, 32), (512, 16), (1024, 16) (``norm=True``);
-  for each, its max error against the plain version and three device-time
-  runs of ``chip_smoke.device_ms`` (so the root's ``chip_smoke.py`` must
-  have it);
+  (256, 64), (256, 32), (512, 32), (512, 16), (1024, 16) (``norm=True``),
+  and the wide-C kernel at (16, 16, 16, 1280), (16, 16, 16, 2048) and
+  (2, 8, 8, 4096); for each, its max error against the plain version and
+  three device-time runs of ``chip_smoke.device_ms`` (so the root's
+  ``chip_smoke.py`` must have it);
 - ``main``: sampled images/s of ``chip_smoke.main_path`` (phase 6) and train
   images/s of ``chip_smoke.train_main_path`` (phase 8, loader included);
 - ``sample``: sampled images/s of three ``chip_smoke.main_path`` runs in a
   row, and the host's time to queue one bf16 UNet forward (B=16, 128 px)
   against the wall time of one that ends in a synchronise, each the mean
   of 10.
+- ``profile``: the wide-C shapes of ``fronts`` under ``torch.profiler``, 50
+  calls each, fp32 and bf16: the device us per call of every kernel that
+  ran, by name, and the bytes a call leaves allocated beyond its output
+  while it runs (a workspace).
 
 Without a CUDA device it exits non-zero at once.
 """
@@ -36,10 +42,24 @@ import subprocess
 import sys
 from pathlib import Path
 
-MODES = ("fronts", "main", "sample")
-FRONTS = ((3, 128, False), (8, 128, True), (16, 128, True), (31, 128, True),  # (C, H, norm)
+MODES = ("fronts", "main", "sample", "profile")
+WIDE = ((1280, 16, True), (2048, 16, True), (4096, 8, True, 2))  # C > 1024; B = 2 at 4096
+FRONTS = ((3, 128, False), (8, 128, True), (16, 128, True), (31, 128, True),  # (C, H, norm[, B])
           (64, 128, True), (64, 64, True), (128, 64, True), (256, 64, True), (256, 32, True),
-          (512, 32, True), (512, 16, True), (1024, 16, True))
+          (512, 32, True), (512, 16, True), (1024, 16, True), *WIDE)
+PROFILE_CALLS = 50
+
+
+def _front_inputs(cs, gen, front, dev):
+    """Row, fp32 and bf16 arguments of one ``FRONTS`` entry (B = 16 unless given)."""
+    import torch
+
+    c, h, norm, *batch = front
+    b = batch[0] if batch else cs.BATCH
+    args = cs.front_args(gen, b, c, h, h, True, dev)
+    a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
+    a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
+    return {"B": b, "C": c, "H": h, "norm": norm}, (("fp32", args), ("bf16", a16))
 
 
 def _fronts(cs, dev) -> None:
@@ -47,12 +67,10 @@ def _fronts(cs, dev) -> None:
     from colddiff_torch.ops.convnext_front import convnext_front, convnext_front_plain
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    for c, h, norm in FRONTS:
-        args = cs.front_args(gen, cs.BATCH, c, h, h, True, dev)
-        a16 = [None if a is None else a.to(torch.bfloat16) for a in args]
-        a16[0] = a16[0].contiguous(memory_format=torch.channels_last)
-        row = {"C": c, "H": h, "norm": norm}
-        for tag, a in (("fp32", args), ("bf16", a16)):
+    for front in FRONTS:
+        row, runs = _front_inputs(cs, gen, front, dev)
+        norm = row["norm"]
+        for tag, a in runs:
             got = convnext_front(*a, norm=norm).float()
             want = convnext_front_plain(*[None if t is None else t.float() for t in a],
                                         norm=norm)
@@ -105,6 +123,37 @@ def _sample(cs, dev) -> None:
                       "forward_wall_ms": wall_ms}), flush=True)
 
 
+def _profile(cs, dev) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from colddiff_torch.ops.convnext_front import convnext_front
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    for front in WIDE:
+        row, runs = _front_inputs(cs, gen, front, dev)
+        for tag, a in runs:
+            convnext_front(*a)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = convnext_front(*a)
+            torch.cuda.synchronize(dev)
+            row["scratch_bytes_" + tag] = (torch.cuda.max_memory_allocated(dev) - base
+                                           - out.nbytes)
+            del out
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_CALLS):
+                    convnext_front(*a)
+                torch.cuda.synchronize(dev)
+            row["device_us_" + tag] = {
+                e.key: getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages()}
+            row["device_us_" + tag] = {k: v / PROFILE_CALLS
+                                       for k, v in row["device_us_" + tag].items() if v}
+        print(json.dumps(row), flush=True)
+
+
 def child(mode: str, root: str) -> int:
     """Measure ``root`` (this process imports only that root's code)."""
     sys.path.insert(0, root)
@@ -120,7 +169,8 @@ def child(mode: str, root: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
     print(json.dumps({"root": root, "mode": mode, "card": cs.gpu_name_and_power()}), flush=True)
-    {"fronts": _fronts, "main": _main_paths, "sample": _sample}[mode](cs, torch.device("cuda", 0))
+    {"fronts": _fronts, "main": _main_paths, "sample": _sample,
+     "profile": _profile}[mode](cs, torch.device("cuda", 0))
     return 0
 
 

@@ -78,11 +78,14 @@ def test_plain_matches_reference_and_interpret(rng, shape, norm, with_cond):
 
 
 # the tile kernel's edge cases on the card (tests/test_torch_cuda.py): C not
-# dividing 128, a tile cut by the edge, H and W below 7; against the
-# reference alone, as above
+# dividing 128, a tile cut by the edge, H and W below 7; and the widths of
+# its cluster form (C > 1024: C just past the tile kernel and not a
+# multiple of the 16-byte unit, the 16*dim front of dim = 80 on a 5x3
+# image, dim = 128's); against the reference alone, as above
 EDGE_CASES = [(shape, norm, cond)
               for shape in [(2, 9, 11, 33), (2, 9, 11, 48), (2, 9, 11, 100), (1, 5, 3, 64),
-                            (2, 17, 33, 128)]
+                            (2, 17, 33, 128), (1, 9, 11, 1025), (2, 5, 3, 1280),
+                            (1, 8, 8, 2048)]
               for norm in (True, False) for cond in (True, False)]
 
 
@@ -158,7 +161,7 @@ def test_cpu_calls_do_not_count_launches(rng):
 @pytest.mark.parametrize("case", ["dtype", "channels", "weight", "layout", "wide_param"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
     """The kernel's argument checks run before any CUDA call."""
-    c = 2000 if case == "channels" else 8
+    c = front_mod.MAX_CHANNELS + 1 if case == "channels" else 8
     dt = torch.float64 if case == "dtype" else torch.float32
     x = torch.zeros(1, c, 4, 4, dtype=dt)
     if case != "layout":

@@ -60,12 +60,20 @@ FRONT_CASES += [(b, c, h, w, norm, with_cond)
 FRONT_CASES += [(b, c, 37, 70, norm, norm) for b, c in
                 ((16, 33), (16, 64), (8, 100), (8, 128), (4, 200), (4, 256), (2, 300),
                  (2, 512)) for norm in (True, False)]
-# the wide-C kernels (C > 1024), at the same edges: C just past the tile
+# the cluster form (C > 1024), at the same edges: C just past the tile
 # kernel, the 16*dim fronts of dim = 80, 96, 128 and 256, and C not a
-# multiple of their 32-channel chunk (1025)
+# multiple of the 16-byte unit (1025)
 FRONT_CASES += [(b, c, h, w, norm, with_cond)
                 for c in (1025, 1280, 1536, 2048, 4096)
                 for h, w in ((9, 11), (130, 7), (17, 33), (5, 3), (1, 1))
+                for b, norm, with_cond in ((1, True, True), (3, True, False),
+                                           (1, False, True), (3, False, False))]
+# the cluster form's slabs: C = 8192 (a cluster of 8 slabs of 1024), and a
+# last slab of a few channels in each configuration (1032 = 4 x 256 + 8,
+# 2049 = 4 x 512 + 1, 4097 = 4 x 1024 + 1)
+FRONT_CASES += [(b, c, h, w, norm, with_cond)
+                for c in (1032, 2049, 4097, 8192)
+                for h, w in ((9, 11), (5, 3), (1, 1))
                 for b, norm, with_cond in ((1, True, True), (3, True, False),
                                            (1, False, True), (3, False, False))]
 
@@ -132,9 +140,48 @@ def test_channels_above_the_limit_raise(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1280, 8192])
+def test_wide_c_call_allocates_only_its_output(cuda, dtype, c):
+    """A C > 1024 call is one launch of the cluster form and allocates its
+    output alone: no workspace."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = _front_args(gen, 2, c, 16, 16, True, dtype, cuda)
+    convnext_front(*args)  # the library is built and the cluster size checked
+    torch.cuda.synchronize()
+    before = (convnext_front.launches, convnext_front.wide_c_launches)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = convnext_front(*args)
+    torch.cuda.synchronize()
+    assert (convnext_front.launches, convnext_front.wide_c_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    out_bytes = out.untyped_storage().nbytes()
+    assert out_bytes == 2 * c * 16 * 16 * out.element_size()
+    assert torch.cuda.max_memory_allocated() - base == out_bytes
+    assert torch.cuda.memory_allocated() - base == out_bytes
+
+
+@pytest.mark.cuda
+def test_cluster_config_follows_c(cuda):
+    """k = ceil(C / S) blocks of at most 8, each slab a multiple of 128
+    channels; C outside the cluster form raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (1025, 1280, 2048, 2049, 4096, 4097, 8192):
+            cfg = front_mod.cluster_config(c, dtype)
+            assert cfg["slab"] % 128 == 0 and 1 <= cfg["k"] <= 8
+            assert (cfg["k"] - 1) * cfg["slab"] < c <= cfg["k"] * cfg["slab"]
+        for c in (TILE_MAX_CHANNELS, MAX_CHANNELS + 1):
+            with pytest.raises(ValueError):
+                front_mod.cluster_config(c, dtype)
+    with pytest.raises(ValueError):
+        front_mod.cluster_config(1280, torch.float64)
+
+
+@pytest.mark.cuda
 def test_dim80_unet_gpu_matches_cpu(cuda):
     """UnetConvNext(dim=80) has a 1280-channel front at ups.0.0 (16*dim),
-    which the wide-C kernels take; fp32 at 128 px, rel L2 <= 1e-3 as
+    which the cluster form takes; fp32 at 128 px, rel L2 <= 1e-3 as
     chip_smoke.py phase 4 holds the flagship."""
     torch.manual_seed(0)
     model = UnetConvNext(dim=80, dim_mults=(1, 2, 4, 8)).eval()

@@ -124,7 +124,7 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL_L2 = 1e-3  # cuDNN vs oneDNN summation orders, as in phase 4
 TRAIN_STEPS = 10
 ACCUM = 2
-PROBE_ATOL = 1e-5  # fp32 summation order of the two sums
+PROBE_ATOL = 1e-5  # masked_norm: fp32 summation order of its mean
 # (B, H, W, C); clusters of 5, 8, 8 and 8 blocks
 WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096), (2, 8, 8, 8192))
 WIDE_DIM = 80  # UnetConvNext(dim=80): a 16 * 80 = 1280-channel front at ups.0.0
@@ -800,11 +800,15 @@ def probe_kernels(device):
         (lambda: probe_ops.probe_masked_norm(a["xn"]),
          lambda: probe_ops.masked_norm_plain(a["xn"]), None, PROBE_ATOL, a["xn"],
          2 * a["xn"].numel(), "scripts/bisect_mosaic.py:49"),
+        # dyn_sublane adds rows r .. r+6 in the plain version's order
         (lambda: probe_ops.probe_dyn_sublane(a["xd"]),
          lambda: probe_ops.dyn_sublane_plain(a["xd"]),
-         lambda: F.conv2d(a["xd"][:, None], ones), PROBE_ATOL, a["xd"],
+         lambda: F.conv2d(a["xd"][:, None], ones), 0.0, a["xd"],
          (probe_ops.WINDOW - 1) * outs[3][1].numel(), "scripts/bisect_mosaic.py:64"),
     ]
+    # (shift, split) of the kernels with a float4 path, for quad_path
+    quad_args = {"roll_whole_row": (shift, width), "dyn_sublane": (0, 0),
+                 "roll_then_slice": (shift, probe_script.SPLIT)}
     rows = []
     for w, (name, got), n, (kernel, plain, library, tol, x, flops, replaces) in zip(
             wrappers, outs, launches, calls):
@@ -815,6 +819,9 @@ def probe_kernels(device):
         row = dict(name=w.__name__, probe=name, launches=n, max_abs_err=err,
                    bound_ms=bound_ms, bound_us=1e3 * bound_ms, bound_by=bound_by,
                    library_ms=None, replaces=replaces, sum=float(got.sum()))
+        if name in quad_args:
+            row["float4_path"] = probe_ops.quad_path(x.data_ptr(), got.data_ptr(),
+                                                     x.shape[-1], *quad_args[name])
         timed_row(row, "ms", kernel)
         row["bound_share"] = bound_ms / row["ms"]
         row["call_ms"] = cuda_median_ms(kernel)
@@ -1058,7 +1065,7 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_us": r["bound_us"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"],
+        "library_ms": r["library_ms"], "float4_path": r.get("float4_path"),
     } for r in probes]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ version: the kernel launches or the call raises.
   probe_dyn_sublane  k_dyn_sublane (:64-70) the sum of 7 consecutive rows
 
 All take and return fp32 tensors ``[..., rows, width]``.  Each wrapper
-counts its kernel's launches in ``<wrapper>.launches``.
+counts its kernel's launches in ``<wrapper>.launches``.  The roll and
+dyn_sublane kernels move 16-byte quads where :func:`quad_path` allows it,
+single floats otherwise.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from . import _build
 
 __all__ = [
-    "GROUP", "WINDOW",
+    "GROUP", "WINDOW", "quad_path",
     "probe_roll", "probe_roll_slice", "probe_masked_norm", "probe_dyn_sublane",
     "roll_plain", "roll_slice_plain", "masked_norm_plain", "dyn_sublane_plain",
 ]
@@ -45,6 +47,14 @@ def _kernel(name: str, nint: int):
     fn.argtypes = [_P, _P] + [_I] * nint + [_P]
     fn.restype = ctypes.c_int
     return fn
+
+
+def quad_path(x_ptr: int, out_ptr: int, width: int, shift: int = 0, split: int = 0) -> bool:
+    """Whether a roll or dyn_sublane kernel may move float4 quads: both
+    pointers 16-byte aligned, and width, shift and split whole quads, so that
+    an aligned output quad has one aligned input quad as its source."""
+    return (x_ptr % 16 == 0 and out_ptr % 16 == 0
+            and width % 4 == 0 and shift % 4 == 0 and split % 4 == 0)
 
 
 def roll_plain(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -93,8 +103,9 @@ def _roll(wrapper, name: str, x: torch.Tensor, shift: int, split: int) -> torch.
     if not (0 <= shift < width and 0 <= split <= width):
         raise ValueError(f"probe_{name}: need 0 <= shift < {width} and "
                          f"0 <= split <= {width}, got {shift}, {split}")
-    return _run(wrapper, "roll", x, torch.empty_like(x), x.numel() // width, width,
-                shift, split)
+    out = torch.empty_like(x)
+    return _run(wrapper, "roll", x, out, x.numel() // width, width, shift, split,
+                quad_path(x.data_ptr(), out.data_ptr(), width, shift, split))
 
 
 def _check_device(x: torch.Tensor) -> bool:
@@ -145,7 +156,8 @@ def probe_dyn_sublane(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(*x.shape[:-2], rows_in - (WINDOW - 1), width,
                       dtype=x.dtype, device=x.device)
     return _run(probe_dyn_sublane, "dyn_sublane", x, out,
-                x.numel() // (rows_in * width), rows_in, width)
+                x.numel() // (rows_in * width), rows_in, width,
+                quad_path(x.data_ptr(), out.data_ptr(), width))
 
 
 for _w in (probe_roll, probe_roll_slice, probe_masked_norm, probe_dyn_sublane):

@@ -4,6 +4,7 @@
     python -m colddiff_torch.scripts.ab main ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab sample ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab profile ROOT [ROOT ...]
+    python -m colddiff_torch.scripts.ab probes ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a checkout (an unpacked ``git archive``
 will do) with its own ``chip_smoke.py`` and ``colddiff_torch/``.  The roots
@@ -31,6 +32,10 @@ Each child prints one JSON line per measurement:
   calls each, fp32 and bf16: the device us per call of every kernel that
   ran, by name, and the bytes a call leaves allocated beyond its output
   while it runs (a workspace).
+- ``probes``: three runs of ``chip_smoke.probe_kernels`` (phase 9): for
+  each of the four probe kernels its device us of each run, its
+  single-call ``call_ms`` and max error against the plain version, and
+  the launch floor (an empty ``torch.cuda._sleep(0)``) of each run.
 
 Without a CUDA device it exits non-zero at once.
 """
@@ -42,12 +47,13 @@ import subprocess
 import sys
 from pathlib import Path
 
-MODES = ("fronts", "main", "sample", "profile")
+MODES = ("fronts", "main", "sample", "profile", "probes")
 WIDE = ((1280, 16, True), (2048, 16, True), (4096, 8, True, 2))  # C > 1024; B = 2 at 4096
 FRONTS = ((3, 128, False), (8, 128, True), (16, 128, True), (31, 128, True),  # (C, H, norm[, B])
           (64, 128, True), (64, 64, True), (128, 64, True), (256, 64, True), (256, 32, True),
           (512, 32, True), (512, 16, True), (1024, 16, True), *WIDE)
 PROFILE_CALLS = 50
+PROBE_RUNS = 3
 
 
 def _front_inputs(cs, gen, front, dev):
@@ -154,6 +160,19 @@ def _profile(cs, dev) -> None:
         print(json.dumps(row), flush=True)
 
 
+def _probes(cs, dev) -> None:
+    runs = [cs.probe_kernels(dev) for _ in range(PROBE_RUNS)]
+    for i, row in enumerate(runs[0][0]):
+        same = [rows[i] for rows, _ in runs]
+        print(json.dumps({"probe": row["probe"], "name": row["name"],
+                          "bound_us": row["bound_us"], "us": [1e3 * r["ms"] for r in same],
+                          "call_ms": [r["call_ms"] for r in same],
+                          "max_abs_err": [r["max_abs_err"] for r in same],
+                          "host_paced": [r.get("host_paced", []) for r in same]}), flush=True)
+    print(json.dumps({"probe": "launch floor", "us": [1e3 * floor["ms"] for _, floor in runs]}),
+          flush=True)
+
+
 def child(mode: str, root: str) -> int:
     """Measure ``root`` (this process imports only that root's code)."""
     sys.path.insert(0, root)
@@ -170,7 +189,7 @@ def child(mode: str, root: str) -> int:
     _build.load_library()
     print(json.dumps({"root": root, "mode": mode, "card": cs.gpu_name_and_power()}), flush=True)
     {"fronts": _fronts, "main": _main_paths, "sample": _sample,
-     "profile": _profile}[mode](cs, torch.device("cuda", 0))
+     "profile": _profile, "probes": _probes}[mode](cs, torch.device("cuda", 0))
     return 0
 
 

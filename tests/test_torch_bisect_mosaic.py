@@ -118,6 +118,34 @@ def test_plain_versions_on_other_shapes(shape):
                                (h - h.mean(-1, keepdims=True)).reshape(shape), atol=1e-6)
 
 
+def _at_offset(n: int, offset: int) -> torch.Tensor:
+    """A contiguous CPU tensor of ``n`` floats at storage offset ``offset``."""
+    return torch.empty(n + offset)[offset:]
+
+
+# (width, shift, split, x offset, out offset in floats, float4 path?)
+QUAD_CASES = [
+    (8576, 8512, 8576, 0, 0, True),    # the probe's roll
+    (8576, 8512, 8192, 0, 0, True),    # the probe's roll_slice
+    (8576, 0, 0, 0, 0, True),          # dyn_sublane
+    (8576, 8512, 8192, 4, 4, True),    # offsets of a whole quad
+    (8576, 8512, 8192, 1, 0, False),   # input pointer off 16 bytes
+    (8576, 8512, 8192, 0, 2, False),   # output pointer off 16 bytes
+    (8577, 8513, 8577, 0, 0, False),   # odd width
+    (130, 66, 130, 0, 0, False),       # width not a whole number of quads
+    (8576, 63, 8576, 0, 0, False),     # odd shift
+    (8576, 8511, 8576, 0, 0, False),   # shift not a whole number of quads
+    (8576, 8512, 8190, 0, 0, False),   # split not a whole number of quads
+]
+
+
+@pytest.mark.parametrize("width,shift,split,x_off,out_off,want", QUAD_CASES)
+def test_quad_path_follows_alignment_and_quads(width, shift, split, x_off, out_off, want):
+    x, out = _at_offset(2 * width, x_off), _at_offset(2 * width, out_off)
+    assert (x.data_ptr() % 16 == 0) == (x_off % 4 == 0)  # storage starts 16-byte aligned
+    assert ops.quad_path(x.data_ptr(), out.data_ptr(), width, shift, split) is want
+
+
 def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         ops.probe_masked_norm(torch.zeros(2, 100))

@@ -211,16 +211,40 @@ def test_small_unet_gpu_matches_cpu(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _probe_cases():
+    """(name, batch, rows, width, shift, split, storage offset): the probes'
+    own shapes; every roll shift and split edge on 16-byte widths (the float4
+    path) and on odd ones (8577, 130: the float path); a batch of 3; an input
+    at storage offset 1 (misaligned: the float path); dyn_sublane with row
+    counts that leave a short last strip; counts past the grid's limits."""
+    cases = []
+    for w in (8576, 8577, 130):
+        splits = (0, 8190, 8192, w) if w > 8192 else (0, w - 68, w - 66, w)
+        for shift in (0, 1, 63, 64, w - 64, w - 1):
+            cases.append(("roll", 1, 64, w, shift, w, 0))
+            cases += [("roll_slice", 1, 64, w, shift, split, 0) for split in splits]
+        cases += [("dyn_sublane", b, rows, w, 0, 0, 0)
+                  for rows in (7, 8, 13, 70, 71) for b in (1, 3)]
+    cases += [("roll", 3, 64, 8576, 8512, 8576, 0), ("roll_slice", 3, 64, 8576, 8512, 8192, 0),
+              ("roll", 1, 64, 8576, 8512, 8576, 1), ("roll_slice", 1, 64, 8576, 8512, 8192, 1),
+              ("dyn_sublane", 1, 70, 8576, 0, 0, 1), ("dyn_sublane", 3, 70, 8576, 0, 0, 1),
+              ("masked_norm", 1, 64, 8192, 0, 0, 0), ("masked_norm", 3, 64, 8192, 0, 0, 0)]
+    # more rows, batches or strips than gridDim.y and .z hold (65,535): the grid loops
+    cases += [("roll_slice", 1, 65537, 8, 4, 4, 0), ("dyn_sublane", 65537, 7, 8, 0, 0, 0),
+              ("dyn_sublane", 1, 4 * 65535 + 11, 4, 0, 0, 0)]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["roll", "roll_slice", "masked_norm", "dyn_sublane"])
-def test_probe_kernel_matches_plain(cuda, name):
+@pytest.mark.parametrize("name,b,rows,width,shift,split,offset", _probe_cases())
+def test_probe_kernel_matches_plain(cuda, name, b, rows, width, shift, split, offset):
     from colddiff_torch.ops import bisect_mosaic as ops
 
     gen = torch.Generator(device=cuda).manual_seed(0)
-    rows = 70 if name == "dyn_sublane" else 64
-    width = 8192 if name == "masked_norm" else 8576
-    x = torch.randn(1, rows, width, generator=gen, device=cuda)
-    shift, split = width - 64, 8192
+    n = b * rows * width
+    x = torch.empty(n + offset, device=cuda)[offset:].view(b, rows, width)
+    x.copy_(torch.randn(b, rows, width, generator=gen, device=cuda))
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset == 1)
     kernel, plain, args = {
         "roll": (ops.probe_roll, ops.roll_plain, (shift,)),
         "roll_slice": (ops.probe_roll_slice, ops.roll_slice_plain, (shift, split)),
@@ -232,8 +256,10 @@ def test_probe_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     want = plain(x, *args)
-    # the rolls are copies; the sums differ only in fp32 summation order
-    tol = 0.0 if name.startswith("roll") else 1e-5
+    # the rolls are copies and dyn_sublane adds its rows in the plain
+    # version's order; masked_norm's mean differs in fp32 summation order
+    tol = 1e-5 if name == "masked_norm" else 0.0
+    assert got.shape == want.shape
     assert (got - want).abs().max().item() <= tol
     with pytest.raises(TypeError):  # fp64 is not a kernel dtype: no fallback
         kernel(x.double(), *args)

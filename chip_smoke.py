@@ -64,7 +64,22 @@ checks it, in phases:
  16. ``all_sample`` on the flagship blur path (T=200, 128 px, B=16,
      traj_stride 10): frame 0 of x0_trajectory is direct_recons, the last
      xt_trajectory frame sampled on for the last 10 steps gives the final
-     image; peak memory.
+     image; peak memory;
+ 17-20. the last four workflows (docs/USAGE.md:44-84), as 11-15:
+     17. hot-noise generation, 128 px: ``noise`` T=200 from N(0, I), with
+         ddim and with x0_step_down (a fixed endpoint);
+     18. animorphosis, 128 px: ``mix`` T=200, endpoints from a second
+         synthetic image set made from a seed; x0_step_down with a fixed
+         endpoint, then 3 ``Trainer.train()`` steps with ``second_dataset``
+         whose last takes the checkpoint and the snapshot;
+     19. desnowification, CelebA-128: ``snow`` level 4, T=200, random_snow,
+         fix_brightness; x0_step_down, then again with recon_noise_std
+         0.01 (the degrade's input is the noisy reconstruction, its ``og``
+         the clean one); 3 ``Trainer.train()`` steps, each resetting the
+         fields, and the host time of one reset; the degrade with
+         fix_brightness off checked too;
+     20. spiral inpainting, 32 px: ``fade_naive`` Spiral_2 at the CLI's
+         T=50, with x0_step_down_spiral_2_fix and _rand.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -113,6 +128,7 @@ from colddiff_torch.train import Trainer
 
 SEED = 0
 BATCH = 16
+SNOW_RECON_NOISE = 0.01  # phase 19: enough to make the degrade's input differ from og
 IMG = 128
 T = 200
 FLAGSHIP = dict(dim=64, dim_mults=(1, 2, 4, 8), channels=3)
@@ -462,6 +478,7 @@ def train_main_path(device, folder: str):
     bitwise = (a["step"] == b["step"] == last
                and all(torch.equal(a[k][n], b[k][n]) for k in ("model", "ema") for n in a[k])
                and torch.equal(a["generator"], b["generator"])
+               and all(torch.equal(v, b["op"][name]) for name, v in a["op"].items())
                and all(torch.equal(v, b["opt"]["state"][i][name])
                        for i, st in a["opt"]["state"].items() for name, v in st.items()))
     return losses, step_s, launches, small, peak, snap_s, bitwise
@@ -580,18 +597,22 @@ def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end
                 lab=False):
     """prepare_start + sample with the bf16 UNet, timed from a clean batch;
     checks the output and the launch counts (17 fronts and one small-C
-    front a forward).  Returns a dict of the run's numbers."""
+    front a forward).  A routine that draws (recon_noise_std, the spiral
+    endpoint redrawn each step) draws from a seeded generator.  Returns a
+    dict of the run's numbers."""
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     img = torch.rand(batch, size, size, 3, generator=gen, device=device) * 2 - 1
     if lab:
         img = rgb2lab(img)
     x_end = None if x_end_fn is None else x_end_fn(gen, img)
     denoise = bf16_denoise(model)
-    sample(d, denoise, prepare_start(d, img, 2, x_end=x_end), t=2, x_end=x_end)  # warm-up
+    sample(d, denoise, prepare_start(d, img, 2, x_end=x_end), t=2, x_end=x_end,
+           generator=gen)  # warm-up
     base = reset_peak(device)
     zero_launches()
     t0 = time.perf_counter()
-    out = sample(d, denoise, prepare_start(d, img, x_end=x_end), x_end=x_end).img
+    out = sample(d, denoise, prepare_start(d, img, x_end=x_end), x_end=x_end,
+                 generator=gen).img
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches, small, wide = launch_counts()
@@ -606,6 +627,18 @@ def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end
                 size=size, seconds=seconds, images_per_s=batch / seconds,
                 peak_bytes=torch.cuda.max_memory_allocated(device), base_bytes=base,
                 launches=launches, small_c_launches=small)
+
+
+def log_sample_row(row, card: str, what: str = "") -> None:
+    """One line for a ``sample_path`` row with its checks."""
+    log(f"[{row['phase']}] {row['op']} {row['routine']} T={row['T']} B={row['batch']} "
+        f"{row['size']}px{what}: {row['seconds']:.3f} s, "
+        f"{row['images_per_s']:.3f} images/s, peak memory {row['peak_bytes']} bytes "
+        f"({row['peak_bytes'] / 2**30:.2f} GiB; {row['base_bytes']} allocated before "
+        f"the run), front launches {row['launches']}, of "
+        f"them small-C {row['small_c_launches']}; degrade cuda vs cpu rel err "
+        f"{row['degrade_rel_err']:.3e}, oracle rel err {row['oracle_rel_err']:.3e}; "
+        f"card: {card}")
 
 
 def workflows(model, device, card: str):
@@ -639,28 +672,24 @@ def workflows(model, device, card: str):
         row = sample_path(d, model, device, BATCH, IMG, **kw)
         row.update(phase=phase, to_lab=bool(kw.get("lab")), degrade_rel_err=deg,
                    oracle_rel_err=oracle)
-        log(f"[{phase}] {row['op']} {row['routine']} T={row['T']} B={BATCH} {IMG}px"
-            f"{' to_lab' if row['to_lab'] else ''}: {row['seconds']:.3f} s, "
-            f"{row['images_per_s']:.3f} images/s, peak memory {row['peak_bytes']} bytes "
-            f"({row['peak_bytes'] / 2**30:.2f} GiB; {row['base_bytes']} allocated before "
-            f"the run), front launches {row['launches']}, of "
-            f"them small-C {row['small_c_launches']}; degrade cuda vs cpu rel err "
-            f"{deg:.3e}, oracle rel err {oracle:.3e}; card: {card}")
+        log_sample_row(row, card, " to_lab" if row["to_lab"] else "")
         rows.append(row)
     return rows
 
 
 def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
-                   snapshot: bool):
+                   snapshot: bool, second_dataset=None):
     """``Trainer.train()`` at full width (B=16, accum 2, bf16) for one
     warm-up step and ``steps`` more, the last with the checkpoint and the EMA
-    sample grids when ``snapshot``; checks the losses and the launch counts
+    sample grids when ``snapshot``, with mix's endpoint images when
+    ``second_dataset`` is given; checks the losses and the launch counts
     (17 fronts a microbatch forward, plus 17 a reverse step of the
     snapshot).  Returns (trainer, train images/s from metrics.jsonl, peak
     bytes, front launches)."""
     kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, bf16=True,
               save_and_sample_every=(1 + steps) if snapshot else 10**9,
-              results_folder=folder, num_workers=8, seed=SEED, device=device)
+              results_folder=folder, num_workers=8, seed=SEED, device=device,
+              second_dataset=second_dataset)
     tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), SyntheticDataset(size, 3, length=64),
                  train_num_steps=1, **kw)
     tr.train(log_every=1)
@@ -759,6 +788,84 @@ def trajectories(model, device, card: str):
                 base_bytes=base, trajectory_bytes=traj_bytes, tail_err=tail_err)
 
 
+def last_workflows(model, device, folder: str, card: str):
+    """Phases 17-20: hot noise, animorphosis (with its training through
+    ``second_dataset``), desnowification (with og live and its training)
+    and spiral inpainting; returns the result rows."""
+    def op(name, **cfg):
+        return get_operator(name, **cfg, device=device)
+
+    def drawn(d):
+        return lambda gen, x: d.op.sample_x_end(gen, x)
+
+    # mix's endpoints: a second synthetic image set, made from a seed
+    second = SyntheticDataset(IMG, 3, length=64, seed=SEED + 11)
+
+    def from_second(gen, x):
+        return torch.from_numpy(np.stack([second[i] for i in range(x.shape[0])])).to(x.device)
+
+    noise_op = op("noise", timesteps=T)
+    mix = ColdDiffusion(op=op("mix", timesteps=T), image_size=IMG,
+                        sampling_routine="x0_step_down")
+    snow = ColdDiffusion(op=op("snow", image_size=IMG, timesteps=T, snow_level=4,
+                               random_snow=True, fix_brightness=True, seed=SEED),
+                         image_size=IMG, sampling_routine="x0_step_down")
+    spiral_op = op("fade_naive", image_size=32, timesteps=50, fade_routine="Spiral_2")
+    runs = [("17", ColdDiffusion(op=noise_op, image_size=IMG, sampling_routine=r), IMG, True)
+            for r in ("ddim", "x0_step_down")]
+    runs += [("18", mix, IMG, None), ("19", snow, IMG, False),
+             ("19", dataclasses.replace(snow, recon_noise_std=SNOW_RECON_NOISE), IMG, False)]
+    runs += [("20", ColdDiffusion(op=spiral_op, image_size=32, sampling_routine=r), 32, True)
+             for r in ("x0_step_down_spiral_2_fix", "x0_step_down_spiral_2_rand")]
+    rows = []
+    for phase, d, size, own_end in runs:
+        x_end_fn = from_second if own_end is None else drawn(d) if own_end else None
+        # the oracle runs x0_step_down without recon noise
+        check = dataclasses.replace(d, recon_noise_std=0.0)
+        deg, oracle = check_operator(check, size, device, x_end_fn=x_end_fn)
+        row = sample_path(d, model, device, BATCH, size, x_end_fn=x_end_fn)
+        row.update(phase=phase, recon_noise_std=d.recon_noise_std, degrade_rel_err=deg,
+                   oracle_rel_err=oracle)
+        log_sample_row(row, card, f" recon_noise_std {d.recon_noise_std}"
+                       if d.recon_noise_std else "")
+        rows.append(row)
+
+    # 19: the blend from og's brightness (fix_brightness off), on the card vs the CPU
+    bright = snow.op.to(device)
+    bright.fix_brightness = False
+    deg_bright = check_operator(dataclasses.replace(snow, op=bright), IMG, device)[0]
+
+    # 18 and 19: Trainer.train(); mix with its endpoint dataset and a snapshot
+    mix_row = next(r for r in rows if r["op"] == "Animorphosis")
+    ips, peak, launches = train_workflow(mix, device, folder + "/p18", IMG, 3, snapshot=True,
+                                         second_dataset=second)[1:]
+    mix_row.update(train_images_per_s=ips, train_peak_bytes=peak, train_launches=launches)
+    log(f"[18] mix Trainer.train() with second_dataset B={BATCH} x accum {ACCUM} {IMG}px "
+        f"bf16, 3 steps (the last with save + EMA snapshot, T={T}): {ips:.3f} train "
+        f"images/s (median of the 2 steps without the snapshot), peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
+    tr, ips, peak, launches = train_workflow(snow, device, folder + "/p19", IMG, 3,
+                                             snapshot=False)
+    if torch.equal(tr.diffusion.op.snow, snow.op.snow):
+        raise AssertionError("random snow: the Trainer's steps did not reset the fields")
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tr.diffusion.op.reset(gen, BATCH)
+    torch.cuda.synchronize(device)
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    del tr
+    snow_row = next(r for r in rows if r["op"] == "Snow" and not r["recon_noise_std"])
+    snow_row.update(train_images_per_s=ips, train_peak_bytes=peak, train_launches=launches,
+                    reset_host_ms=reset_ms, degrade_rel_err_brightness=deg_bright)
+    log(f"[19] snow Trainer.train() B={BATCH} x accum {ACCUM} {IMG}px bf16, 3 steps, "
+        f"random_snow (fields reset every step): {ips:.3f} train images/s (median), peak "
+        f"memory {peak} bytes ({peak / 2**30:.2f} GiB), front launches {launches}; one "
+        f"reset {reset_ms:.3f} ms on the host (fields [{T}, 1, {IMG}, {IMG}] x 2); degrade "
+        f"with fix_brightness off cuda vs cpu rel err {deg_bright:.3e}; card: {card}")
+    return rows
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -806,9 +913,9 @@ def probe_kernels(device):
          lambda: F.conv2d(a["xd"][:, None], ones), 0.0, a["xd"],
          (probe_ops.WINDOW - 1) * outs[3][1].numel(), "scripts/bisect_mosaic.py:64"),
     ]
-    # (shift, split) of the kernels with a float4 path, for quad_path
+    # (shift, split) of each kernel's float4 path, for quad_path
     quad_args = {"roll_whole_row": (shift, width), "dyn_sublane": (0, 0),
-                 "roll_then_slice": (shift, probe_script.SPLIT)}
+                 "roll_then_slice": (shift, probe_script.SPLIT), "masked_norm": (0, 0)}
     rows = []
     for w, (name, got), n, (kernel, plain, library, tol, x, flops, replaces) in zip(
             wrappers, outs, launches, calls):
@@ -1027,8 +1134,11 @@ def main() -> int:
         flows.append(random_fade_path(dev, folder + "/p15", card))
     # 16. all_sample
     flows.append(trajectories(model16, dev, card))
+    # 17-20. noise, mix, snow, fade_naive
+    with tempfile.TemporaryDirectory() as folder:
+        flows += last_workflows(model16, dev, folder, card)
     del model16
-    log("[11-16] " + json.dumps(flows))
+    log("[11-20] " + json.dumps(flows))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

@@ -35,8 +35,18 @@
 //   outputs.  Its loads set its pace, not their bytes: all of a thread's
 //   reads land before its first sum, and longer strips (fewer bytes, fewer
 //   threads) ran slower on the card (PERF.md).
-// - masked_norm gives each 64-element group one warp, two elements a lane,
-//   and reduces the sum with shuffles.
+// - masked_norm_kernel: the roll's grid (a row x column-block grid, 32-bit
+//   columns, no division) with a 16-byte float4 unit a lane, so a half-warp
+//   of 16 lanes holds one 64-element group.  Each lane adds its quad as
+//   x + y + z + w, then 4 xor-shuffle steps inside the half-warp (offsets
+//   8, 4, 2, 1) give every lane of the group bitwise the same sum: the
+//   order is fixed, so the kernel is deterministic run to run.  Each
+//   thread holds kNormUnits units of different groups and issues all their
+//   loads before the first reduction.  At the probe's shape (64 x 8192):
+//   256 blocks of 256 threads, one wave (timed against 64-1024 threads, 1-4
+//   units, a warp a group and streaming stores, PERF.md).  Where a pointer
+//   is not 16-byte aligned the wrapper takes masked_norm_float_kernel: a
+//   warp a group, two floats a lane, 5 shuffle steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +60,8 @@ constexpr int kRollThreads = 128;  // roll: threads per block
 constexpr int kRollUnits = 2;      // roll: units (float4 or float) per thread
 constexpr int kSumThreads = 64;    // dyn_sublane: threads per block
 constexpr int kSumStrip = 8;       // dyn_sublane: output rows per thread
+constexpr int kNormThreads = 256;  // masked_norm: threads per block
+constexpr int kNormUnits = 2;      // masked_norm: float4 units (groups) per thread
 constexpr int kMaxGridYZ = 65535;  // gridDim.y and .z; larger counts loop
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -96,8 +108,49 @@ __global__ void __launch_bounds__(kRollThreads)
   }
 }
 
-__global__ void masked_norm_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                   long long groups) {
+__device__ __forceinline__ float4 minus(float4 v, float m) {
+  return make_float4(v.x - m, v.y - m, v.z - m, v.w - m);
+}
+
+// x, out: [rows, units] of float4, a row a whole number of 64-float groups
+// (16 units).  A block covers kNormUnits * kNormThreads units of one row;
+// unit k of a thread is j0 + k * kNormThreads, so each half-warp holds one
+// whole group.
+__global__ void __launch_bounds__(kNormThreads)
+    masked_norm_kernel(const float4* __restrict__ x, float4* __restrict__ out, int rows,
+                       int units) {
+  constexpr int kLanes = kGroup / 4;  // lanes a group
+  const int j0 = blockIdx.x * (kNormUnits * kNormThreads) + threadIdx.x;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float4* xr = x + (long long)r * units;
+    float4* orow = out + (long long)r * units;
+    float4 v[kNormUnits];
+    float s[kNormUnits];
+#pragma unroll
+    for (int k = 0; k < kNormUnits; ++k) {
+      const int j = j0 + k * kNormThreads;
+      v[k] = j < units ? xr[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kNormUnits; ++k) s[k] = v[k].x + v[k].y + v[k].z + v[k].w;
+    // every lane shuffles (a group past the row's end is all zeros and
+    // stays inside its own half-warp)
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < kNormUnits; ++k) s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+    }
+#pragma unroll
+    for (int k = 0; k < kNormUnits; ++k) {
+      const int j = j0 + k * kNormThreads;
+      if (j < units) orow[j] = minus(v[k], s[k] * (1.0f / kGroup));
+    }
+  }
+}
+
+// The float path: a warp a group, two floats a lane (any 4-byte alignment).
+__global__ void masked_norm_float_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                         long long groups) {
   long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   int lane = threadIdx.x % 32;
   if (g >= groups) return;  // whole warps leave together
@@ -168,13 +221,24 @@ extern "C" int colddiff_probe_roll(const float* x, float* out, int rows, int wid
   return (int)cudaGetLastError();
 }
 
-// x, out: [rows, width], width a multiple of 64.
+// x, out: [rows, width], width a multiple of 64.  quads: 1 takes the
+// float4 path (refused unless both pointers are 16-byte aligned), 0 the
+// float path.
 extern "C" int colddiff_probe_masked_norm(const float* x, float* out, int rows, int width,
-                                          void* stream) {
-  if (rows <= 0 || width <= 0 || width % kGroup != 0) return (int)cudaErrorInvalidValue;
-  long long groups = (long long)rows * width / kGroup;
-  masked_norm_kernel<<<blocks_for(groups * 32), kThreads, 0, (cudaStream_t)stream>>>(
-      x, out, groups);
+                                          int quads, void* stream) {
+  if (rows <= 0 || width <= 0 || width % kGroup != 0 || (quads && !quads_fit(x, out, width, 0, 0)))
+    return (int)cudaErrorInvalidValue;
+  if (quads) {
+    const int units = width / 4;
+    const dim3 grid(blocks_of(units, kNormUnits * kNormThreads),
+                    rows < kMaxGridYZ ? rows : kMaxGridYZ);
+    masked_norm_kernel<<<grid, kNormThreads, 0, (cudaStream_t)stream>>>(
+        (const float4*)x, (float4*)out, rows, units);
+  } else {
+    long long groups = (long long)rows * width / kGroup;
+    masked_norm_float_kernel<<<blocks_for(groups * 32), kThreads, 0, (cudaStream_t)stream>>>(
+        x, out, groups);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,7 @@ class ColdDiffusion:
                  x_end: Optional[torch.Tensor] = None, rng=None) -> torch.Tensor:
         """Degrade ``x_start`` to per-sample level ``t`` (index; -1 = clean)."""
         n = torch.clamp(t + 1, 0, self.num_timesteps)
-        y = self.op.degrade(x_start, n, x_end=x_end, rng=rng)
+        y = self.op.degrade(x_start, n, x_end=x_end, og=x_start, rng=rng)
         if self.discrete:
             # 8-bit quantization of the training input
             # (deblurring_diffusion_pytorch.py:954-958)

@@ -1,9 +1,8 @@
-"""Degradation operator registry.
+"""Degradation operator registry: the nine operators of ``colddiff.operators``.
 
-Ported: ``blur``, ``decolor``, ``fade``, ``fade_generation`` and
-``resolution``.  The other names of ``colddiff.operators`` raise
-``NotImplementedError`` that names the ``ROADMAP.md`` item that will port
-them.
+``get_operator(name, **cfg)`` builds one by name with the JAX
+``get_operator``'s keywords plus ``device`` (the card unless the caller asks
+for the CPU).
 """
 
 from .base import Degradation
@@ -11,22 +10,21 @@ from .blur import GaussianBlur
 from .decolor import Decolorization
 from .fade import Fade
 from .fade_generation import FadeGeneration
+from .fade_naive import FadeNaive
+from .noise import Animorphosis, GaussianNoise, Interpolation
 from .resolution import Resolution
+from .snow import Snow
 
 _REGISTRY = {
     "blur": GaussianBlur,
+    "noise": GaussianNoise,
+    "mix": Animorphosis,
     "decolor": Decolorization,
     "fade": Fade,
+    "fade_naive": FadeNaive,
     "fade_generation": FadeGeneration,
     "resolution": Resolution,
-}
-
-# colddiff.operators names not ported yet -> the ROADMAP.md item porting them
-_PENDING = {
-    "noise": "ROADMAP.md section 1, item 8 (Family-B noise and mix)",
-    "mix": "ROADMAP.md section 1, item 8 (Family-B noise and mix)",
-    "snow": "ROADMAP.md section 1, item 8 (snow, with og)",
-    "fade_naive": "ROADMAP.md section 1, item 8 (fade_naive and its spiral routines)",
+    "snow": Snow,
 }
 
 
@@ -36,10 +34,6 @@ def get_operator(name: str, **cfg) -> Degradation:
     ``cfg`` is the JAX ``get_operator``'s keywords plus ``device``, where the
     operator's tables live: ``"cuda"`` unless the caller asks for the CPU.
     """
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"degradation '{name}' is not ported to colddiff_torch yet; "
-            f"see {_PENDING[name]}")
     try:
         cls = _REGISTRY[name]
     except KeyError as e:
@@ -48,5 +42,6 @@ def get_operator(name: str, **cfg) -> Degradation:
     return cls.create(**cfg)
 
 
-__all__ = ["Degradation", "Decolorization", "Fade", "FadeGeneration", "GaussianBlur",
-           "Resolution", "get_operator"]
+__all__ = ["Degradation", "Animorphosis", "Decolorization", "Fade", "FadeGeneration",
+           "FadeNaive", "GaussianBlur", "GaussianNoise", "Interpolation", "Resolution",
+           "Snow", "get_operator"]

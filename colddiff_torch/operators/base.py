@@ -65,13 +65,28 @@ class Degradation:
                 setattr(new, name, value.to(device))
         return new
 
+    def state(self) -> dict:
+        """The operator's tensors by name: what a checkpoint keeps, as the
+        JAX Trainer saves the operator pytree (colddiff/train.py:532-547)."""
+        return {name: value for name, value in vars(self).items() if torch.is_tensor(value)}
+
+    def with_state(self, state: dict, device: torch.device | str) -> "Degradation":
+        """A copy holding the tensors of ``state`` (from :meth:`state`) on ``device``."""
+        new = copy.copy(self)
+        for name, value in state.items():
+            setattr(new, name, value.to(device))
+        return new
+
     def _levels(self, n, device: torch.device) -> torch.Tensor:
         return torch.as_tensor(n, dtype=torch.long, device=device)
 
     def degrade(self, x: torch.Tensor, n: torch.Tensor, *,
-                x_end: Optional[torch.Tensor] = None, rng=None) -> torch.Tensor:
+                x_end: Optional[torch.Tensor] = None, og: Optional[torch.Tensor] = None,
+                rng=None) -> torch.Tensor:
         """Apply ``n`` degradation steps to NHWC batch ``x`` (n: integer [B]);
-        ``rng`` is a state of :meth:`sample_rng_state`, or None."""
+        ``og`` is the clean image the state came from (snow blends its
+        brightness from it; the other operators ignore it), ``rng`` a state
+        of :meth:`sample_rng_state`, or None."""
         raise NotImplementedError
 
     def degrade_sampling(self, x: torch.Tensor, n: torch.Tensor, **kw) -> torch.Tensor:
@@ -94,11 +109,11 @@ class Degradation:
         )
 
     def total(self, x: torch.Tensor, *, x_end: Optional[torch.Tensor] = None,
-              rng=None) -> torch.Tensor:
+              og: Optional[torch.Tensor] = None, rng=None) -> torch.Tensor:
         """Fully degraded state x_T (used to initialize generation)."""
         n = torch.full((x.shape[0],), self.timesteps, dtype=torch.long,
                        device=x.device)
-        return self.degrade(x, n, x_end=x_end, rng=rng)
+        return self.degrade(x, n, x_end=x_end, og=og, rng=rng)
 
     def reset(self, generator: Optional[torch.Generator], batch_size: int) -> "Degradation":
         """Redraw any stochastic operator state (snow fields, fade crops);

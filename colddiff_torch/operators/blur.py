@@ -81,7 +81,7 @@ class GaussianBlur(Degradation):
         at_final = (n == self.timesteps).reshape(-1, 1, 1, 1)
         return torch.where(at_final, mean.expand_as(y), y)
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         n = self._levels(n, self.cum.device)
         y = linop.apply_separable(x, self.cum, n)
         if self.discrete:

@@ -60,7 +60,7 @@ class Decolorization(Degradation):
         require_ieee_fp32(x)
         return torch.einsum("bij,bhwj->bhwi", m, x.to(torch.float32))
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         n = self._levels(n, self.cum.device)
         m = self.cum[n]  # [B, C, C]
         if self.to_lab:
@@ -69,7 +69,7 @@ class Decolorization(Degradation):
             y = self._mix(x, m)
         return torch.where(bcast(n, x.dim()) == 0, x.to(y.dtype), y)
 
-    def total(self, x, *, x_end=None, rng=None):
+    def total(self, x, *, x_end=None, og=None, rng=None):
         """Pure channel mean (forward_process_impl.py:200-218)."""
         if self.to_lab:
             rgb = lab2rgb(x)

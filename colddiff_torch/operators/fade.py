@@ -99,7 +99,7 @@ class Fade(Degradation):
     def reset(self, generator, batch_size):
         return self.randomize(generator, batch_size)
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         dev = self.cum_masks.device
         m = self.cum_masks[self._levels(n, dev)]  # [B, grid, grid]
         if self.random:

@@ -66,7 +66,7 @@ class FadeGeneration(Degradation):
         idx = torch.clamp(n - 1, 0, self.timesteps - 1)
         return n, self.alphas[idx][..., None]  # [B, S, S, 1]
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         if x_end is None:
             raise ValueError("FadeGeneration.degrade needs x_end (draw it with "
                              "sample_x_end)")

@@ -52,5 +52,5 @@ class Resolution(Degradation):
         return cls(timesteps=timesteps,
                    cum=torch.as_tensor(linop.cumulative_matrices(mats), device=device))
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         return linop.apply_separable(x, self.cum, self._levels(n, self.cum.device))

@@ -15,9 +15,8 @@ version: the kernel launches or the call raises.
   probe_dyn_sublane  k_dyn_sublane (:64-70) the sum of 7 consecutive rows
 
 All take and return fp32 tensors ``[..., rows, width]``.  Each wrapper
-counts its kernel's launches in ``<wrapper>.launches``.  The roll and
-dyn_sublane kernels move 16-byte quads where :func:`quad_path` allows it,
-single floats otherwise.
+counts its kernel's launches in ``<wrapper>.launches``.  Every kernel moves
+16-byte quads where :func:`quad_path` allows it, single floats otherwise.
 """
 
 from __future__ import annotations
@@ -50,9 +49,10 @@ def _kernel(name: str, nint: int):
 
 
 def quad_path(x_ptr: int, out_ptr: int, width: int, shift: int = 0, split: int = 0) -> bool:
-    """Whether a roll or dyn_sublane kernel may move float4 quads: both
-    pointers 16-byte aligned, and width, shift and split whole quads, so that
-    an aligned output quad has one aligned input quad as its source."""
+    """Whether a probe kernel may move float4 quads: both pointers 16-byte
+    aligned, and width, shift and split whole quads, so that an aligned
+    output quad has one aligned input quad as its source (masked_norm's
+    width is whole groups of 64, so there the pointers alone decide)."""
     return (x_ptr % 16 == 0 and out_ptr % 16 == 0
             and width % 4 == 0 and shift % 4 == 0 and split % 4 == 0)
 
@@ -141,8 +141,9 @@ def probe_masked_norm(x: torch.Tensor) -> torch.Tensor:
         return masked_norm_plain(x)
     _cuda_input("masked_norm", x)
     width = x.shape[-1]
-    return _run(probe_masked_norm, "masked_norm", x, torch.empty_like(x),
-                x.numel() // width, width)
+    out = torch.empty_like(x)
+    return _run(probe_masked_norm, "masked_norm", x, out, x.numel() // width, width,
+                quad_path(x.data_ptr(), out.data_ptr(), width))
 
 
 def probe_dyn_sublane(x: torch.Tensor) -> torch.Tensor:

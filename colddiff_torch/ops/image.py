@@ -4,6 +4,7 @@ Color conversions follow the reference's snowification/diffusion/utils.py
 (scikit-image D65 Lab port): images are NHWC in [-1, 1]; ``rgb2lab`` rescales
 to [0, 1] inside and ``lab2rgb`` returns [-1, 1], as the JAX copies do.  The
 3x3 color products are fp32 elementwise sums, so TF32 never touches them.
+``clipped_zoom`` is the snow set-up's host numpy/scipy zoom.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb"]
+__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb", "rgb_to_grayscale", "clipped_zoom"]
 
 _RGB2XYZ = np.array(
     [
@@ -23,6 +24,7 @@ _RGB2XYZ = np.array(
 )
 _XYZ2RGB = np.linalg.inv(_RGB2XYZ).astype(np.float32)
 _D65 = np.array([0.95047, 1.0, 1.08883], dtype=np.float32)
+_GRAY_W = (0.299, 0.587, 0.114)
 
 
 def quantize_uint8(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +36,27 @@ def quantize_uint8(x: torch.Tensor) -> torch.Tensor:
     y = (x + 1.0) * 0.5 * 255.0
     y = torch.trunc(y) / 255.0
     return y * 2.0 - 1.0
+
+
+def rgb_to_grayscale(x: torch.Tensor) -> torch.Tensor:
+    """NHWC RGB -> NHW1 grayscale, BT.601 weights (kornia semantics)."""
+    r, g, b = x[..., 0:1], x[..., 1:2], x[..., 2:3]
+    return _GRAY_W[0] * r + _GRAY_W[1] * g + _GRAY_W[2] * b
+
+
+def clipped_zoom(img: np.ndarray, zoom_factor: float) -> np.ndarray:
+    """Center-crop-and-zoom, reference snow setup (forward_process_impl.py:32-42).
+
+    Host-side numpy/scipy (runs once at operator set-up). ``img`` is [H, W, C].
+    """
+    from scipy.ndimage import zoom as scizoom
+
+    h = img.shape[0]
+    ch = int(np.ceil(h / zoom_factor))
+    top = (h - ch) // 2
+    img = scizoom(img[top : top + ch, top : top + ch], (zoom_factor, zoom_factor, 1), order=1)
+    trim_top = (img.shape[0] - h) // 2
+    return img[trim_top : trim_top + h, trim_top : trim_top + h]
 
 
 def _mat3(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:

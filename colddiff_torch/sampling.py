@@ -15,7 +15,11 @@ Port of ``prepare_start``, ``sample`` and ``all_sample`` in
       (defading_diffusion_naive.py:430-445).
 
 Every ``degrade`` is O(1) (a gather and a few fp32 products), so a T-step
-run is T UNet calls and 2T small degrades.
+run is T UNet calls and 2T small degrades.  Each degrade is given ``og``,
+the clean image its state stands for, where colddiff/sampling.py gives it:
+the input of ``prepare_start``, and x0_hat in the reverse step, also when
+``recon_noise_std`` perturbs the degrade's input (snow blends from ``og``;
+the other operators ignore it).
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP.md section 1):
 models trained with ``Step``, ``Step_Gradient`` or ``Gradient_norm`` and
@@ -59,7 +63,7 @@ def prepare_start(diffusion: ColdDiffusion, img: torch.Tensor,
     operator state of ``op.sample_rng_state``."""
     steps = diffusion.num_timesteps if t is None else int(t)
     n = torch.full((img.shape[0],), steps, dtype=torch.long, device=img.device)
-    return diffusion.op.degrade_sampling(img, n, x_end=x_end, rng=rng)
+    return diffusion.op.degrade_sampling(img, n, x_end=x_end, og=img, rng=rng)
 
 
 def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
@@ -79,17 +83,18 @@ def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
             x2 = op.x_end_from_xt(x0_hat, img, n_t)
         else:  # a fixed endpoint
             x2 = x_end
-        return img - op.degrade(x0_hat, n_t, x_end=x2) + op.degrade(x0_hat, n_tm1, x_end=x2)
+        return (img - op.degrade(x0_hat, n_t, x_end=x2, og=x0_hat)
+                + op.degrade(x0_hat, n_tm1, x_end=x2, og=x0_hat))
     if routine == "default":
-        return op.degrade_sampling(x0_hat, n_tm1)
+        return op.degrade_sampling(x0_hat, n_tm1, og=x0_hat)
     base = x0_hat
     if diffusion.recon_noise_std > 0.0:
         # snowification diffusion.py:222-225: perturb the reconstruction
-        # before re-degrading
+        # before re-degrading; snow still blends from the clean x0_hat
         base = x0_hat + diffusion.recon_noise_std * torch.randn(
             x0_hat.shape, generator=generator, dtype=x0_hat.dtype,
             device=x0_hat.device)
-    return img - op.degrade(base, n_t) + op.degrade(base, n_tm1)
+    return img - op.degrade(base, n_t, og=x0_hat) + op.degrade(base, n_tm1, og=x0_hat)
 
 
 def sample(

@@ -1,20 +1,24 @@
 """Degradation schedules: per-step kernel and factor tables.
 
 Copies of ``colddiff.schedules.gaussian_kernel_1d``, ``gaussian_kernel_2d``,
-``blur_routine_params``, ``decolor_routine_thetas``, ``fade_routine_sigmas``
-and ``resolution_routine_sizes`` (the JAX package imports JAX at package
-import, so the port carries its own numpy table code;
-``tests/test_torch_blur.py`` and ``tests/test_torch_operators.py`` pin each
-copy to the original).  Host-side setup: numpy, float64
+``blur_routine_params``, ``decolor_routine_thetas``, ``fade_routine_sigmas``,
+``resolution_routine_sizes``, ``cosine_beta_schedule`` and
+``cosine_alphas_cumprod`` (the JAX package imports JAX at package import,
+so the port carries its own numpy table code; ``tests/test_torch_blur.py``,
+``tests/test_torch_operators.py`` and ``tests/test_torch_operators_b.py``
+pin each copy to the original).  Host-side setup: numpy, float64
 internally, float32 out.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 __all__ = ["gaussian_kernel_1d", "gaussian_kernel_2d", "blur_routine_params",
-           "decolor_routine_thetas", "fade_routine_sigmas", "resolution_routine_sizes"]
+           "decolor_routine_thetas", "fade_routine_sigmas", "resolution_routine_sizes",
+           "cosine_beta_schedule", "cosine_alphas_cumprod"]
 
 
 def gaussian_kernel_1d(size: int, sigma: float) -> np.ndarray:
@@ -171,3 +175,19 @@ def resolution_routine_sizes(routine: str, timesteps: int, image_size: int):
             dec = i
         out.append((image_size - dec, mode, do_blur))
     return out
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    """Nichol & Dhariwal cosine betas (reference denoising_diffusion_pytorch.py:295)."""
+    steps = timesteps + 1
+    x = np.linspace(0, steps, steps, dtype=np.float64)
+    ac = np.cos(((x / steps) + s) / (1 + s) * math.pi * 0.5) ** 2
+    ac = ac / ac[0]
+    betas = 1.0 - (ac[1:] / ac[:-1])
+    return np.clip(betas, 0.0, 0.999)
+
+
+def cosine_alphas_cumprod(timesteps: int, s: float = 0.008) -> np.ndarray:
+    """Cumulative prod of (1 - beta): the interpolation alphas of Family B."""
+    betas = cosine_beta_schedule(timesteps, s)
+    return np.cumprod(1.0 - betas, axis=0)

@@ -14,22 +14,24 @@ As in the JAX Trainer:
     forward and keeps fp32 master weights, Adam moments and EMA (the JAX
     recipe, not per-op autocast);
   - the denoiser's output is cast to fp32, so the loss is fp32;
-  - each microbatch draws its Family-B endpoint (``op.sample_x_end``), its
-    t and its operator state (``op.sample_rng_state``: fade's crops) from
-    one ``torch.Generator`` seeded by ``seed``;
+  - each microbatch takes its Family-B endpoint from ``second_dataset``
+    (``mix``: a second loader, seeded ``seed + 1``) or draws it
+    (``op.sample_x_end``), then draws its t and its operator state
+    (``op.sample_rng_state``: fade's crops), all from one
+    ``torch.Generator`` seeded by ``seed``;
   - only operators with ``random_snow`` are reset at each step
     (colddiff/train.py:468-478), from a generator of their own seeded by the
     step, so a fade operator's baked crops never change in training.
 
-Checkpoints are ``torch.save`` blobs ``{step, model, ema, opt, generator}``
-(``results_folder/model.pt``); ``model`` and ``ema`` have the reference's
-state-dict names.
+Checkpoints are ``torch.save`` blobs ``{step, model, ema, opt, generator,
+op}`` (``results_folder/model.pt``); ``model`` and ``ema`` have the
+reference's state-dict names, and ``op`` holds the operator's tensors (a
+random snow field), as the JAX checkpoint holds the operator.
 
 Not ported yet: multi-process training and parameter sharding (ROADMAP.md
-section 1, item 12), the restart supervisor (item 13), the endpoint dataset
-of ``mix`` (``second_dataset``, item 8), and ``remat``, ``to_lab``, ``profile_dir`` and
-``debug_nans`` (item 6).  Passing any of them raises
-``NotImplementedError``.
+section 1, item 12), the restart supervisor (item 13), and ``remat``,
+``to_lab``, ``profile_dir`` and ``debug_nans`` (item 6).  Passing any of
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,6 @@ __all__ = ["Trainer"]
 
 # JAX Trainer arguments not ported yet -> the ROADMAP.md item that ports them
 _UNPORTED = {
-    "second_dataset": "section 1, item 8 (Family-B noise and mix)",
     "param_sharding": "section 1, item 12 (parallelism)",
     "fsdp_min_size": "section 1, item 12 (parallelism)",
     "mesh": "section 1, item 12 (parallelism)",
@@ -77,6 +78,7 @@ class Trainer:
         model: torch.nn.Module,
         dataset,
         *,
+        second_dataset=None,  # mix: the endpoint images (demixing Trainer)
         train_batch_size: int = 32,
         train_lr: float = 2e-5,
         train_num_steps: int = 700000,
@@ -133,12 +135,17 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.dl = cycle(DataLoader(dataset, train_batch_size,
                                    num_workers=num_workers, seed=seed))
-        # snapshot() draws its grid images from a loader of its own, so the
-        # training stream is the same whether or not snapshots run
+        self.dl2 = (cycle(DataLoader(second_dataset, train_batch_size,
+                                     num_workers=num_workers, seed=seed + 1))
+                    if second_dataset is not None else None)
+        # snapshot() draws its grid images (and endpoints) from loaders of
+        # its own, so the training stream is the same whether or not
+        # snapshots run
         self._snap_dataset = dataset
+        self._snap_dataset2 = second_dataset
         self._snap_workers = num_workers
         self._snap_seed = seed
-        self._snap_dl = None
+        self._snap_dl = self._snap_dl2 = None
         self._snap_bs = 0
         self.step = 0
 
@@ -175,9 +182,11 @@ class Trainer:
                 return model(x.to(dtype), t).to(torch.float32)
         return fn
 
-    def _next_superbatch(self) -> torch.Tensor:
-        """[accum, B, H, W, C] float32 on the device."""
-        xs = torch.from_numpy(np.stack([next(self.dl) for _ in range(self.accum)]))
+    def _next_superbatch(self, dl=None) -> torch.Tensor:
+        """[accum, B, H, W, C] float32 on the device, from ``dl`` (the
+        training loader by default)."""
+        dl = self.dl if dl is None else dl
+        xs = torch.from_numpy(np.stack([next(dl) for _ in range(self.accum)]))
         if self.device.type == "cuda":
             return xs.pin_memory().to(self.device, non_blocking=True)
         return xs.to(self.device)
@@ -237,7 +246,9 @@ class Trainer:
         """Run to ``train_num_steps``; returns "done"."""
         t0 = time.time()
         while self.step < self.train_num_steps:
-            loss = self.train_step(self._next_superbatch())
+            batch = self._next_superbatch()
+            x_end = None if self.dl2 is None else self._next_superbatch(self.dl2)
+            loss = self.train_step(batch, x_end=x_end)
             if self.step % log_every == 0:
                 loss_v = float(loss)
                 dt = time.time() - t0
@@ -258,29 +269,39 @@ class Trainer:
         self.save()
         return "done"
 
-    def _snapshot_batch(self, n: int) -> np.ndarray:
-        """Grid images from a loader with its own seed
-        (colddiff/train.py:358-391), never more than the dataset holds."""
+    def _snapshot_batch(self, n: int):
+        """(grid images, endpoint images or None) from loaders with their own
+        seeds (colddiff/train.py:358-391), never more than a dataset holds;
+        one batch size for both, since the endpoints pair with the images."""
         bs = min(max(n, self.batch_size), len(self._snap_dataset))
+        if self._snap_dataset2 is not None:
+            bs = min(bs, len(self._snap_dataset2))
         if self._snap_dl is None or self._snap_bs < bs:
             self._snap_bs = bs
             self._snap_dl = cycle(DataLoader(
                 self._snap_dataset, bs, num_workers=self._snap_workers,
                 seed=self._snap_seed + 7919))
-        return next(self._snap_dl)[:n]
+            if self._snap_dataset2 is not None:
+                self._snap_dl2 = cycle(DataLoader(
+                    self._snap_dataset2, bs, num_workers=self._snap_workers,
+                    seed=self._snap_seed + 7920))
+        og = next(self._snap_dl)[:n]
+        return og, None if self._snap_dl2 is None else next(self._snap_dl2)[:n]
 
     def snapshot(self, milestone: int, batch_size: Optional[int] = None) -> None:
         """EMA sample grids ``og``, ``xt``, ``direct_recons`` and ``sample``
         (reference Trainer.train(), deblurring_diffusion_pytorch.py:1206-1228)."""
         n = batch_size or min(self.batch_size, 36)
-        og_np = self._snapshot_batch(n)
+        og_np, end_np = self._snapshot_batch(n)
         og = torch.from_numpy(og_np).to(self.device)
         self.ema_model.eval()
         d = self.diffusion
         gen = torch.Generator(device=self.device).manual_seed(self.step)
         with torch.inference_mode():
-            # an operator that owns its endpoint draws it (train.py:326-336)
-            x_end = d.op.sample_x_end(gen, og)
+            # mix's endpoints come from the second dataset; an operator that
+            # owns its endpoint draws it (train.py:326-336)
+            x_end = (d.op.sample_x_end(gen, og) if end_np is None
+                     else torch.from_numpy(end_np).to(self.device))
             res = sample(d, self._denoise_fn(self.ema_model),
                          prepare_start(d, og, x_end=x_end), x_end=x_end, generator=gen)
         for name, imgs in [("og", og_np), ("xt", res.xt),
@@ -292,14 +313,15 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def state(self) -> dict:
-        """The checkpoint blob ``{step, model, ema, opt, generator}``."""
+        """The checkpoint blob ``{step, model, ema, opt, generator, op}``."""
         return {"step": self.step, "model": self.model.state_dict(),
                 "ema": self.ema_model.state_dict(), "opt": self.opt.state_dict(),
-                "generator": self.generator.get_state()}
+                "generator": self.generator.get_state(), "op": self.diffusion.op.state()}
 
     def load_state(self, blob: dict) -> None:
-        """Restore a blob of :meth:`state` (or of
-        ``models.convert.train_state_from_flax``, which has no generator).
+        """Restore a blob of :meth:`state`, of
+        ``models.convert.train_state_from_flax`` (no generator, no operator)
+        or of a checkpoint older than the operator's entry (no ``op``).
 
         Adam's moments and step counts come from the blob, its
         hyperparameters stay this Trainer's, as in the JAX Trainer, whose
@@ -312,6 +334,9 @@ class Trainer:
             group.update(hyper)
         if "generator" in blob:
             self.generator.set_state(blob["generator"].cpu())
+        if "op" in blob:
+            self.diffusion = dataclasses.replace(
+                self.diffusion, op=self.diffusion.op.with_state(blob["op"], self.device))
         self.step = int(blob["step"])
 
     def save(self, path: Optional[str | os.PathLike] = None) -> None:

@@ -136,6 +136,10 @@ QUAD_CASES = [
     (8576, 63, 8576, 0, 0, False),     # odd shift
     (8576, 8511, 8576, 0, 0, False),   # shift not a whole number of quads
     (8576, 8512, 8190, 0, 0, False),   # split not a whole number of quads
+    (8192, 0, 0, 0, 0, True),          # masked_norm at the probe's width
+    (64, 0, 0, 4, 4, True),            # masked_norm, one group, offsets of a quad
+    (8192, 0, 0, 1, 0, False),         # masked_norm, input off 16 bytes
+    (8192, 0, 0, 0, 3, False),         # masked_norm, output off 16 bytes
 ]
 
 

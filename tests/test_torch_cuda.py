@@ -227,11 +227,17 @@ def _probe_cases():
                   for rows in (7, 8, 13, 70, 71) for b in (1, 3)]
     cases += [("roll", 3, 64, 8576, 8512, 8576, 0), ("roll_slice", 3, 64, 8576, 8512, 8192, 0),
               ("roll", 1, 64, 8576, 8512, 8576, 1), ("roll_slice", 1, 64, 8576, 8512, 8192, 1),
-              ("dyn_sublane", 1, 70, 8576, 0, 0, 1), ("dyn_sublane", 3, 70, 8576, 0, 0, 1),
-              ("masked_norm", 1, 64, 8192, 0, 0, 0), ("masked_norm", 3, 64, 8192, 0, 0, 0)]
+              ("dyn_sublane", 1, 70, 8576, 0, 0, 1), ("dyn_sublane", 3, 70, 8576, 0, 0, 1)]
     # more rows, batches or strips than gridDim.y and .z hold (65,535): the grid loops
     cases += [("roll_slice", 1, 65537, 8, 4, 4, 0), ("dyn_sublane", 65537, 7, 8, 0, 0, 0),
               ("dyn_sublane", 1, 4 * 65535 + 11, 4, 0, 0, 0)]
+    # masked_norm: row counts 1, 3, 64 and past the grid's 65,535; one group,
+    # three, the probe's 128; the float4 path (offset 0, or 4 floats: still
+    # 16-byte aligned) and the float path (offset 1)
+    cases += [("masked_norm", b, rows, w, 0, 0, offset)
+              for rows in (1, 3, 64) for w in (64, 192, 8192) for b in (1, 3)
+              for offset in (0, 1, 4)]
+    cases += [("masked_norm", 1, 65537, 64, 0, 0, offset) for offset in (0, 1)]
     return cases
 
 
@@ -245,6 +251,8 @@ def test_probe_kernel_matches_plain(cuda, name, b, rows, width, shift, split, of
     x = torch.empty(n + offset, device=cuda)[offset:].view(b, rows, width)
     x.copy_(torch.randn(b, rows, width, generator=gen, device=cuda))
     assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset == 1)
+    if name == "masked_norm":  # the wrapper's path: float4 unless misaligned
+        assert ops.quad_path(x.data_ptr(), 0, width) is (offset != 1)
     kernel, plain, args = {
         "roll": (ops.probe_roll, ops.roll_plain, (shift,)),
         "roll_slice": (ops.probe_roll_slice, ops.roll_slice_plain, (shift, split)),

@@ -324,8 +324,3 @@ def test_new_operators_build_on_the_card_by_default(name, cfg):
     op = get_operator(name, **cfg)
     assert all(v.is_cuda for v in vars(op).values() if torch.is_tensor(v))
 
-
-@pytest.mark.parametrize("name", ["noise", "mix", "snow", "fade_naive"])
-def test_pending_operators_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 8"):
-        get_operator(name, image_size=8, timesteps=3)

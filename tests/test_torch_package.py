@@ -49,7 +49,9 @@ def test_every_submodule_imports_without_building():
             "colddiff_torch.data.datasets", "colddiff_torch.utils",
             "colddiff_torch.operators.decolor", "colddiff_torch.operators.fade",
             "colddiff_torch.operators.fade_generation",
-            "colddiff_torch.operators.resolution", "colddiff_torch.ops.image"} <= set(names)
+            "colddiff_torch.operators.resolution", "colddiff_torch.ops.image",
+            "colddiff_torch.operators.noise", "colddiff_torch.operators.snow",
+            "colddiff_torch.operators.fade_naive"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build.load_library.cache_info().currsize == 0  # no nvcc, no dlopen

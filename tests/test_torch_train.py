@@ -261,8 +261,8 @@ def test_trainer_refuses_what_it_cannot_do(tmp_path):
         _port_trainer(tmp_path, load_path="a", load_torch_path="b")
     with pytest.raises(NotImplementedError, match="item 12"):
         _port_trainer(tmp_path, param_sharding="fsdp")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_trainer(tmp_path, second_dataset=datasets.SyntheticDataset(16))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        _port_trainer(tmp_path, remat=True)
     with pytest.raises(TypeError):
         _port_trainer(tmp_path, not_an_argument=1)
     if not torch.cuda.is_available():

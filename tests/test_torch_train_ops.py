@@ -133,7 +133,7 @@ class _SnowLike(Degradation):
         super().__init__(4)
         self.draws = []
 
-    def degrade(self, x, n, *, x_end=None, rng=None):
+    def degrade(self, x, n, *, x_end=None, og=None, rng=None):
         return x
 
     def reset(self, generator, batch_size):

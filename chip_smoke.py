@@ -80,6 +80,26 @@ checks it, in phases:
          fix_brightness off checked too;
      20. spiral inpainting, 32 px: ``fade_naive`` Spiral_2 at the CLI's
          T=50, with x0_step_down_spiral_2_fix and _rand.
+ 21. CIFAR-10 deblurring with the ResNet UNet at full width,
+     ``get_model("UnetResNet", dataset="cifar10")`` (35.7M parameters,
+     dropout 0.1), blur Special_6_routine T=50 at 32 px: the fp32 forward
+     on the card vs the CPU; bf16 prepare_start + sample at B=32 (images/s,
+     peak memory); ``Trainer.train()`` B=32 x accum 2, bf16, dropout from
+     the Trainer's dropout generator (train images/s, ms a step, peak
+     memory); one state and one dropout seed give one loss, another seed
+     another; the checkpoint round trip and ``load_torch_path`` of a
+     reference-named blob; ssim / rmse / psnr of the samples on the card vs
+     the CPU.  The ResNet launches no front kernel (checked);
+ 22. the other training routines, each through ``Trainer.train()`` and a
+     sampling run: ``Final_small_noise``, ``Final_random_mean``,
+     ``Final_random_mean_and_actual`` and ``Gradient_norm`` on
+     super-resolution (T=4, 128 px) with the flagship UNet (17 fronts a
+     forward checked), ``Step`` and ``Step_Gradient`` on random snow
+     (level 3, T=200, fix_brightness, 32 px) with the ResNet;
+ 23. ``sample_multi_step`` on phase 21's configuration, per-sample t_start
+     and t_end: an oracle denoiser ends each sample at the clean batch
+     degraded to its t_end, and the fp32 ResNet's run on the card matches
+     its CPU run.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -97,6 +117,7 @@ kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import gc
@@ -114,15 +135,17 @@ import torch.nn.functional as F
 
 from colddiff_torch.data import SyntheticDataset
 from colddiff_torch.diffusion import ColdDiffusion
-from colddiff_torch.models import UnetConvNext
-from colddiff_torch.models.layers import ConvNextBlock
+from colddiff_torch.eval import metrics
+from colddiff_torch.models import UnetConvNext, get_model
+from colddiff_torch.models.convert import load_reference_checkpoint
+from colddiff_torch.models.layers import ChannelLayerNorm, ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
 from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, cluster_config,
                                               convnext_front, convnext_front_plain)
 from colddiff_torch.ops.image import rgb2lab
-from colddiff_torch.sampling import all_sample, prepare_start, sample
+from colddiff_torch.sampling import all_sample, prepare_start, sample, sample_multi_step
 from colddiff_torch.scripts import bisect_mosaic as probe_script
 from colddiff_torch.train import Trainer
 
@@ -144,6 +167,12 @@ PROBE_ATOL = 1e-5  # masked_norm: fp32 summation order of its mean
 # (B, H, W, C); clusters of 5, 8, 8 and 8 blocks
 WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096), (2, 8, 8, 8192))
 WIDE_DIM = 80  # UnetConvNext(dim=80): a 16 * 80 = 1280-channel front at ups.0.0
+CIFAR = 32  # phases 21-23: CIFAR-10 with the ResNet UNet of get_model
+RESNET_BATCH = 32
+CIFAR_T = 50  # blur Special_6_routine (BASELINE.md:24)
+ROUTINE_STEPS = 2  # phase 22: Trainer.train() steps a routine, after one warm-up
+MULTI_STEP_CPU_BATCH = 4  # phase 23: the fp32 model run on the card vs the CPU
+METRIC_REL = 1e-5  # ssim / rmse / psnr on the card vs the CPU
 DEGRADE_REL = 1e-5  # an operator's degrade on the card vs the CPU, relative to max |y|
 TRAJ_STRIDE = 10
 RUN = 50  # launches per device-time run of a kernel or a library call
@@ -163,23 +192,30 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def seeded_unet(seed: int, device, **cfg) -> UnetConvNext:
-    """UnetConvNext with weights drawn from a seeded torch.Generator:
-    uniform(+-1/sqrt(fan_in)) weights and biases, LayerNorm g=1, b=0."""
-    model = UnetConvNext(**cfg)
+def seeded_weights(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
+    """``model`` with weights drawn from a seeded torch.Generator:
+    uniform(+-1/sqrt(fan_in)) weights and biases, norm scales 1 and offsets
+    0 (ConvNeXt LayerNorm g, b; ResNet GroupNorm weight, bias); in eval()."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(".g"):
-                p.fill_(1.0)
-            elif name.endswith(".b"):
-                p.zero_()
+            owner = model.get_submodule(name.rsplit(".", 1)[0])
+            if isinstance(owner, (ChannelLayerNorm, torch.nn.GroupNorm)):
+                p.fill_(1.0 if name.endswith((".g", ".weight")) else 0.0)
             else:
-                owner = model.get_submodule(name.rsplit(".", 1)[0])
-                fan_in = owner.weight[0].numel()
-                bound = 1.0 / math.sqrt(fan_in)
+                bound = 1.0 / math.sqrt(owner.weight[0].numel())
                 p.uniform_(-bound, bound, generator=gen)
     return model.to(device).eval()
+
+
+def seeded_unet(seed: int, device, **cfg) -> UnetConvNext:
+    return seeded_weights(UnetConvNext(**cfg), seed, device)
+
+
+def seeded_resnet(seed: int, device) -> torch.nn.Module:
+    """The CIFAR-10 ResNet UNet of ``get_model`` (ch 128, (1,2,2,2), 2 res
+    blocks, attention at 16 px, dropout 0.1, 32 px), seeded weights."""
+    return seeded_weights(get_model("UnetResNet", dataset="cifar10"), seed, device)
 
 
 def record_fronts(model: UnetConvNext, x: torch.Tensor, t: torch.Tensor):
@@ -594,12 +630,13 @@ def check_operator(d: ColdDiffusion, size: int, device, x_end_fn=None, lab=False
 
 
 def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end_fn=None,
-                lab=False):
+                lab=False, fronts: int = 17, keep=None):
     """prepare_start + sample with the bf16 UNet, timed from a clean batch;
-    checks the output and the launch counts (17 fronts and one small-C
-    front a forward).  A routine that draws (recon_noise_std, the spiral
-    endpoint redrawn each step) draws from a seeded generator.  Returns a
-    dict of the run's numbers."""
+    checks the output and the launch counts (``fronts`` fronts a forward,
+    one of them small-C: 17 for UnetConvNext, 0 for UnetResNet).  A routine
+    that draws (recon_noise_std, the spiral endpoint redrawn each step)
+    draws from a seeded generator.  Returns a dict of the run's numbers;
+    ``keep``, a dict, also receives the clean batch and the samples."""
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     img = torch.rand(batch, size, size, 3, generator=gen, device=device) * 2 - 1
     if lab:
@@ -616,13 +653,16 @@ def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches, small, wide = launch_counts()
+    if keep is not None:
+        keep.update(img=img, out=out)
     steps = d.num_timesteps
     if not (out.shape == img.shape and torch.isfinite(out).all().item()):
         raise AssertionError(f"{type(d.op).__name__} sample: {out.shape}, not finite/shaped")
-    if (launches, small, wide) != (17 * steps, steps, 0):
+    small_want = steps if fronts else 0
+    if (launches, small, wide) != (fronts * steps, small_want, 0):
         raise AssertionError(f"{type(d.op).__name__} sample launched {launches} fronts, "
-                             f"{small} small-C, {wide} wide-C; expected {17 * steps}, "
-                             f"{steps}, 0")
+                             f"{small} small-C, {wide} wide-C; expected {fronts * steps}, "
+                             f"{small_want}, 0")
     return dict(op=type(d.op).__name__, routine=d.sampling_routine, T=steps, batch=batch,
                 size=size, seconds=seconds, images_per_s=batch / seconds,
                 peak_bytes=torch.cuda.max_memory_allocated(device), base_bytes=base,
@@ -678,28 +718,32 @@ def workflows(model, device, card: str):
 
 
 def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
-                   snapshot: bool, second_dataset=None):
-    """``Trainer.train()`` at full width (B=16, accum 2, bf16) for one
-    warm-up step and ``steps`` more, the last with the checkpoint and the EMA
-    sample grids when ``snapshot``, with mix's endpoint images when
+                   snapshot: bool, second_dataset=None, model=None, batch: int = BATCH,
+                   fronts: int = 17):
+    """``Trainer.train()`` at full width (B=16 unless ``batch``, accum 2,
+    bf16) of ``model`` (the flagship UNet unless given) for one warm-up step
+    and ``steps`` more, the last with the checkpoint and the EMA sample
+    grids when ``snapshot``, with mix's endpoint images when
     ``second_dataset`` is given; checks the losses and the launch counts
-    (17 fronts a microbatch forward, plus 17 a reverse step of the
-    snapshot).  Returns (trainer, train images/s from metrics.jsonl, peak
-    bytes, front launches)."""
-    kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, bf16=True,
+    (``fronts`` a forward: 17 for UnetConvNext, 0 for UnetResNet; one
+    forward a microbatch, two under Final_random_mean_and_actual, plus one
+    a reverse step of the snapshot).  Returns (trainer, train images/s from
+    metrics.jsonl, peak bytes, front launches)."""
+    kw = dict(train_batch_size=batch, gradient_accumulate_every=ACCUM, bf16=True,
               save_and_sample_every=(1 + steps) if snapshot else 10**9,
               results_folder=folder, num_workers=8, seed=SEED, device=device,
               second_dataset=second_dataset)
-    tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), SyntheticDataset(size, 3, length=64),
-                 train_num_steps=1, **kw)
+    model = seeded_unet(SEED, device, **FLAGSHIP) if model is None else model
+    tr = Trainer(d, model, SyntheticDataset(size, 3, length=64), train_num_steps=1, **kw)
     tr.train(log_every=1)
     reset_peak(device)
     zero_launches()
     tr.train_num_steps = 1 + steps
     tr.train(log_every=1)
     launches, small, _ = launch_counts()
-    want = 17 * ACCUM * steps + (17 * d.num_timesteps if snapshot else 0)
-    if launches != want or small * 17 != want:
+    per_loss = 2 if d.train_routine == "Final_random_mean_and_actual" else 1
+    want = fronts * (per_loss * ACCUM * steps + (d.num_timesteps if snapshot else 0))
+    if launches != want or small * fronts != want:
         raise AssertionError(f"{type(d.op).__name__} training launched {launches} fronts "
                              f"({small} small-C), expected {want}")
     lines = [json.loads(x) for x in tr.metrics_path.read_text().splitlines()]
@@ -864,6 +908,218 @@ def last_workflows(model, device, folder: str, card: str):
         f"reset {reset_ms:.3f} ms on the host (fields [{T}, 1, {IMG}, {IMG}] x 2); degrade "
         f"with fix_brightness off cuda vs cpu rel err {deg_bright:.3e}; card: {card}")
     return rows
+
+
+def cifar_blur(device) -> ColdDiffusion:
+    """CIFAR-10 deblurring (BASELINE.md:24): blur Special_6_routine T=50,
+    kernel 11, sigma i/100 + 0.35, x0_step_down."""
+    op = get_operator("blur", image_size=CIFAR, timesteps=CIFAR_T,
+                      blur_routine="Special_6_routine", kernel_size=11, device=device)
+    return ColdDiffusion(op=op, image_size=CIFAR, sampling_routine="x0_step_down")
+
+
+def resnet_cifar(device, folder: str, card: str):
+    """Phase 21: CIFAR-10 deblurring with the ResNet UNet at full width:
+    (a) the fp32 forward on the card vs the CPU; (b) bf16 prepare_start +
+    sample at B=32; (c) Trainer.train() for one warm-up step and 2 timed
+    ones, B=32 x accum 2, bf16, dropout live; (d) two train_steps from one
+    state and one dropout seed give one loss, another seed another; (e) the
+    checkpoint round trip, and load_torch_path of a reference-named blob;
+    (e2) ssim, rmse and psnr of the samples on the card vs the CPU.  No
+    front kernel launches here: the JAX twin reaches no Pallas kernel.
+    Returns the phase's row."""
+    t_phase = time.perf_counter()
+    # (a)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    x = torch.rand(4, CIFAR, CIFAR, 3, generator=gen) * 2 - 1
+    t = torch.tensor([0, 12, 31, CIFAR_T - 1])
+    model_cpu, model = seeded_resnet(SEED, "cpu"), seeded_resnet(SEED, device)
+    with torch.inference_mode():
+        want = model_cpu(x, t)
+        zero_launches()
+        got = model(x.to(device), t.to(device))
+        torch.cuda.synchronize(device)
+    del model_cpu
+    rel = rel_l2(got, want)
+    params = sum(p.numel() for p in model.parameters())
+    if not (rel <= UNET_REL_L2 and launch_counts() == (0, 0, 0)):
+        raise AssertionError(f"ResNet UNet fp32 cuda vs cpu: rel L2 {rel}, front launches "
+                             f"{launch_counts()}")
+    log(f"[21a] UnetResNet CIFAR-10 ({params} parameters) fp32 cuda vs cpu rel L2 "
+        f"{rel:.3e} (<= {UNET_REL_L2}), front launches 0")
+    # (b)
+    d = cifar_blur(device)
+    deg, oracle = check_operator(d, CIFAR, device)
+    keep = {}
+    row = sample_path(d, model.to(torch.bfloat16), device, RESNET_BATCH, CIFAR, fronts=0,
+                      keep=keep)
+    del model
+    row.update(phase="21", params=params, fp32_rel_l2=rel, degrade_rel_err=deg,
+               oracle_rel_err=oracle)
+    log_sample_row(row, card, " UnetResNet")
+    # (c)
+    tr, ips, peak, launches = train_workflow(d, device, folder + "/train", CIFAR, 2,
+                                             snapshot=False, model=seeded_resnet(SEED, device),
+                                             batch=RESNET_BATCH, fronts=0)
+    step_ms = 1e3 * RESNET_BATCH * ACCUM / ips
+    log(f"[21c] UnetResNet Trainer.train() B={RESNET_BATCH} x accum {ACCUM} {CIFAR}px bf16, "
+        f"dropout 0.1 from the Trainer's dropout generator: {ips:.3f} train images/s "
+        f"(median of 2 steps), {step_ms:.3f} ms per optimizer step, peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
+    # (d)
+    blob = copy.deepcopy(tr.state())
+    batch = tr._next_superbatch()
+    losses = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dseed in (1, 1, 2):
+            tr.load_state(copy.deepcopy(blob))  # Adam steps its moments in place
+            tr.dropout_generator.manual_seed(dseed)
+            losses.append(tr.train_step(batch).item())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not losses[0] == losses[1] != losses[2]:
+        raise AssertionError(f"dropout seeds 1, 1, 2 gave losses {losses}")
+    log(f"[21d] train_step from one state: dropout seed 1 twice -> {losses[0]!r}, "
+        f"{losses[1]!r}; seed 2 -> {losses[2]!r}")
+    # (e)
+    tr.save()
+    kw = dict(train_batch_size=RESNET_BATCH, gradient_accumulate_every=ACCUM, bf16=True,
+              num_workers=1, seed=SEED, device=device)
+    ds = SyntheticDataset(CIFAR, 3, length=64)
+    fresh = Trainer(d, seeded_resnet(SEED + 1, device), ds, results_folder=folder + "/fresh",
+                    load_path=f"{folder}/train/model.pt", **kw)
+    a, b = tr.state(), fresh.state()
+    bitwise = (a["step"] == b["step"]
+               and all(torch.equal(a[k][n], b[k][n]) for k in ("model", "ema") for n in a[k])
+               and all(torch.equal(a[k], b[k]) for k in ("generator", "dropout_generator"))
+               and all(torch.equal(v, b["opt"]["state"][i][name])
+                       for i, st in a["opt"]["state"].items() for name, v in st.items()))
+    ref = seeded_resnet(SEED + 2, "cpu").state_dict()
+    torch.save({"step": 9, "model": {f"module.denoise_fn.{k}": v for k, v in ref.items()},
+                "ema": {f"module.denoise_fn.{k}": v * 0.5 for k, v in ref.items()}},
+               f"{folder}/ref.pt")
+    migrated = Trainer(d, seeded_resnet(SEED + 3, device), ds, results_folder=folder + "/ref",
+                       load_torch_path=f"{folder}/ref.pt", **kw)
+    loaded = (migrated.step == 9
+              and set(load_reference_checkpoint(f"{folder}/ref.pt")) == set(ref)
+              and all(torch.equal(migrated.model.state_dict()[k].cpu(), v)
+                      and torch.equal(migrated.ema_model.state_dict()[k].cpu(), v * 0.5)
+                      for k, v in ref.items()))
+    if not (bitwise and loaded):
+        raise AssertionError(f"ResNet checkpoint round trip bitwise {bitwise}, reference "
+                             f"blob loaded {loaded}")
+    log("[21e] checkpoint round trip bitwise (model, ema, Adam, both generators); "
+        "load_torch_path of a reference-named ResNet blob exact")
+    del tr, fresh, migrated
+    # (e2)
+    scores = {}
+    for fn in (metrics.ssim, metrics.rmse, metrics.psnr):
+        on_card = fn(keep["out"], keep["img"]).item()
+        on_cpu = fn(keep["out"].cpu(), keep["img"].cpu()).item()
+        err = abs(on_card - on_cpu) / abs(on_cpu)
+        if not (math.isfinite(on_card) and err <= METRIC_REL):
+            raise AssertionError(f"{fn.__name__}: card {on_card}, cpu {on_cpu}")
+        scores[fn.__name__] = (on_card, err)
+    log("[21e2] samples vs clean batch: " + ", ".join(
+        f"{k} {v:.6f} (card vs cpu rel err {e:.3e})" for k, (v, e) in scores.items()))
+    seconds = time.perf_counter() - t_phase
+    row.update(train_images_per_s=ips, train_step_ms=step_ms, train_peak_bytes=peak,
+               train_launches=launches, dropout_losses=losses,
+               metrics={k: v for k, (v, _) in scores.items()}, phase_seconds=seconds)
+    log(f"[21] phase seconds {seconds:.2f}")
+    return row
+
+
+def routine_workflows(device, folder: str, card: str):
+    """Phase 22: the training routines of item 10 through Trainer.train()
+    (one warm-up step, ROUTINE_STEPS timed) and one sampling run each:
+    Final_small_noise, Final_random_mean, Final_random_mean_and_actual and
+    Gradient_norm on super-resolution (Incremental_factor_2, T=4, 128 px)
+    with the flagship UNet, as resolution_diffusion_pytorch trains them;
+    Step and Step_Gradient on random snow (level 3, T=200, fix_brightness,
+    32 px; BASELINE.md:31) with the ResNet UNet, as snowification trains
+    them.  Returns the rows."""
+    t_phase = time.perf_counter()
+    sr = get_operator("resolution", image_size=IMG, timesteps=4,
+                      resolution_routine="Incremental_factor_2", device=device)
+    snow = get_operator("snow", image_size=CIFAR, timesteps=T, snow_level=3, random_snow=True,
+                        fix_brightness=True, seed=SEED, device=device)
+    runs = [(r, sr, IMG, 17) for r in ("Final_small_noise", "Final_random_mean",
+                                      "Final_random_mean_and_actual", "Gradient_norm")]
+    runs += [(r, snow, CIFAR, 0) for r in ("Step", "Step_Gradient")]
+    models16 = {17: seeded_unet(SEED, device, **FLAGSHIP).to(torch.bfloat16),
+                0: seeded_resnet(SEED, device).to(torch.bfloat16)}
+    rows = []
+    for routine, op, size, fronts in runs:
+        t0 = time.perf_counter()
+        d = ColdDiffusion(op=op, image_size=size, train_routine=routine,
+                          sampling_routine="x0_step_down")
+        model = None if fronts else seeded_resnet(SEED, device)
+        ips, peak, launches = train_workflow(d, device, f"{folder}/{routine}", size,
+                                             ROUTINE_STEPS, snapshot=False, model=model,
+                                             fronts=fronts)[1:]
+        row = sample_path(d, models16[fronts], device, BATCH, size, fronts=fronts)
+        row.update(phase="22", train_routine=routine,
+                   model="UnetConvNext" if fronts else "UnetResNet", train_images_per_s=ips,
+                   train_peak_bytes=peak, train_launches=launches,
+                   seconds_total=time.perf_counter() - t0)
+        log(f"[22] {routine} {row['op']} T={row['T']} {size}px {row['model']} B={BATCH}: "
+            f"Trainer.train() x accum {ACCUM} bf16 {ips:.3f} train images/s (median of "
+            f"{ROUTINE_STEPS}), peak {peak} bytes, front launches {launches}; sample "
+            f"{row['images_per_s']:.3f} images/s, peak {row['peak_bytes']} bytes, front "
+            f"launches {row['launches']}, of them small-C {row['small_c_launches']}; "
+            f"{row['seconds_total']:.2f} s; card: {card}")
+        rows.append(row)
+    log(f"[22] phase seconds {time.perf_counter() - t_phase:.2f}")
+    return rows
+
+
+def multi_step_path(device, card: str):
+    """Phase 23: sample_multi_step on phase 21's configuration, per-sample
+    t_start in [1, 50] and t_end in [0, t_start) from a seeded generator.
+    Each sample starts at the clean batch degraded to its t_start; the
+    oracle denoiser must end it at the clean batch degraded to its t_end
+    (the clean image at 0); then the fp32 ResNet's run on the card against
+    its CPU run.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    d = cifar_blur(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    clean = torch.rand(RESNET_BATCH, CIFAR, CIFAR, 3, generator=gen, device=device) * 2 - 1
+    t_start = torch.randint(1, CIFAR_T + 1, (RESNET_BATCH,), generator=gen, device=device)
+    t_end = (torch.rand(RESNET_BATCH, generator=gen, device=device) * t_start).long()
+    t_end[0] = 0
+    start = d.op.degrade(clean, t_start)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = sample_multi_step(d, lambda x, t: clean, start, t_start, t_end)
+    torch.cuda.synchronize(device)
+    oracle_s = time.perf_counter() - t0
+    want = d.op.degrade(clean, t_end)
+    err = (out - want).abs().max().item()
+    if not (err <= ORACLE_ATOL and torch.equal(want[t_end == 0], clean[t_end == 0])):
+        raise AssertionError(f"sample_multi_step oracle: max err {err}")
+    n = MULTI_STEP_CPU_BATCH
+    outs, secs = [], []  # the card's run, then the CPU's
+    for dev in (device, torch.device("cpu")):
+        model = seeded_resnet(SEED, dev)
+        dd = dataclasses.replace(d, op=d.op.to(dev))
+        t0 = time.perf_counter()
+        outs.append(sample_multi_step(dd, lambda x, t: model(x, t), start[:n].to(dev),
+                                      t_start[:n].to(dev), t_end[:n].to(dev)).cpu())
+        secs.append(time.perf_counter() - t0)
+    rel = rel_l2(*outs)
+    if not rel <= UNET_REL_L2:
+        raise AssertionError(f"sample_multi_step fp32 cuda vs cpu: rel L2 {rel}")
+    iters = int((t_start[:n] - t_end[:n]).max())
+    seconds = time.perf_counter() - t_phase
+    log(f"[23] sample_multi_step blur Special_6 T={CIFAR_T} {CIFAR}px B={RESNET_BATCH}, "
+        f"t_start {t_start.tolist()}, t_end {t_end.tolist()}: oracle max err {err:.3e} "
+        f"(<= {ORACLE_ATOL}) in {oracle_s:.3f} s; fp32 UnetResNet B={n} ({iters} "
+        f"iterations) cuda vs cpu rel L2 {rel:.3e} (<= {UNET_REL_L2}), cuda "
+        f"{secs[0]:.3f} s, cpu {secs[1]:.3f} s; phase seconds {seconds:.2f}; card: {card}")
+    return dict(phase="23", oracle_max_err=err, rel_l2=rel, iterations=iters,
+                oracle_seconds=oracle_s, cuda_seconds=secs[0], phase_seconds=seconds)
 
 
 def probe_kernels(device):
@@ -1139,6 +1395,16 @@ def main() -> int:
         flows += last_workflows(model16, dev, folder, card)
     del model16
     log("[11-20] " + json.dumps(flows))
+
+    # 21-23. CIFAR-10 with the ResNet UNet, the other training routines,
+    # sample_multi_step
+    with tempfile.TemporaryDirectory() as folder:
+        late = [resnet_cifar(dev, folder + "/p21", card)]
+        reset_peak(dev)
+        late += routine_workflows(dev, folder + "/p22", card)
+    reset_peak(dev)
+    late.append(multi_step_path(dev, card))
+    log("[21-23] " + json.dumps(late))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

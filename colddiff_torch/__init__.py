@@ -5,16 +5,26 @@ reference.  Module paths mirror ``colddiff/`` so each counterpart is found by
 name.  Public functions keep the JAX package's NHWC image layout; inside the
 UNet, tensors are NCHW in ``torch.channels_last`` memory.
 
-Ported so far: the blur, decolor, fade, resolution and fade-generation
-degradations, the ConvNeXt UNet, ``ColdDiffusion`` (``q_sample`` and the
-deterministic training losses), the ``prepare_start`` / ``sample`` /
-``all_sample`` reverse samplers (Family A and Family B) and the
-single-device ``Trainer``.  The ConvNeXt block front runs as CUDA kernels
+Ported so far: the nine degradation operators of ``colddiff.operators``
+(blur, noise, mix, decolor, fade, fade_naive, fade_generation, resolution,
+snow), both UNet families (``UnetConvNext``, ``UnetResNet``) and
+``get_model``, ``ColdDiffusion`` (``q_sample`` and every training routine),
+the ``prepare_start`` / ``sample`` / ``all_sample`` / ``sample_multi_step``
+reverse samplers (Family A and Family B, models of every training routine),
+the single-device ``Trainer`` and the image metrics (``eval.ssim``,
+``rmse``, ``psnr``).  The ConvNeXt block front runs as CUDA kernels
 (``colddiff_torch/csrc/convnext_front.cu``) on CUDA tensors and as plain
-PyTorch on CPU tensors.
+PyTorch on CPU tensors; the Mosaic probes of ``scripts/bisect_mosaic.py``
+run as ``colddiff_torch/csrc/bisect_mosaic.cu``.  The ResNet family runs
+stock torch ops, as its JAX twin runs no Pallas kernel.
 
 Importing this package imports torch and numpy only: no kernel is compiled
 until a CUDA tensor first reaches one.
 """
 
 __version__ = "0.1.0"
+
+from .diffusion import ColdDiffusion  # noqa: E402
+from .sampling import all_sample, prepare_start, sample, sample_multi_step  # noqa: E402
+
+__all__ = ["ColdDiffusion", "all_sample", "prepare_start", "sample", "sample_multi_step"]

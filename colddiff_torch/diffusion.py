@@ -1,11 +1,10 @@
 """Diffusion configuration, the forward process and the training losses.
 
 Port of ``ColdDiffusion`` in ``colddiff/diffusion.py``: the degradation,
-the routine names, ``q_sample``, ``loss_func``, ``p_losses`` for the
-deterministic routines (``Final``, ``Step``, ``Step_Gradient``,
-``Gradient_norm``) and ``loss``.  The routines that draw noise
-(``Final_small_noise``, ``Final_random_mean[_and_actual]``) raise
-``NotImplementedError`` (ROADMAP.md section 1, item 10).
+the routine names, ``q_sample``, ``loss_func``, ``p_losses`` for every
+training routine (``Final``, ``Final_small_noise``, ``Final_random_mean``,
+``Final_random_mean_and_actual``, ``Step``, ``Step_Gradient``,
+``Gradient_norm``) and ``loss``.
 
 Time convention: ``t`` is the reference's step *index* in [0, T);
 ``q_sample(x, t)`` degrades by ``t + 1`` steps, and ``t = -1`` is a clean
@@ -14,7 +13,9 @@ passthrough (snowification diffusion.py:344-388).
 Randomness: ``x_end`` is a Family-B operator's endpoint, and ``rng`` the
 operator's drawn state (``op.sample_rng_state``), which ``loss`` draws once
 and hands to every ``q_sample`` of that loss, as the JAX loss hands one key
-to both (colddiff/diffusion.py:103-120).
+to both (colddiff/diffusion.py:103-120).  The noise routines draw their
+noise from a ``torch.Generator`` (``loss`` hands down its own); a given
+``noise`` replaces the draw, so the tests replay the JAX normals.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ import torch
 from .operators.base import Degradation
 from .ops.image import quantize_uint8
 
-__all__ = ["ColdDiffusion", "DenoiseFn"]
+__all__ = ["ColdDiffusion", "DenoiseFn", "X0_ROUTINES"]
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
-_RNG_ROUTINES = ("Final_small_noise", "Final_random_mean",
-                 "Final_random_mean_and_actual")
+# routines whose model predicts x0 (the three noise routines draw noise)
+X0_ROUTINES = ("Final", "Final_small_noise", "Final_random_mean",
+               "Final_random_mean_and_actual")
 
 
 @dataclass(frozen=True)
@@ -79,16 +81,35 @@ class ColdDiffusion:
 
     def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
                  t: torch.Tensor, *, x_end: Optional[torch.Tensor] = None,
-                 rng=None) -> torch.Tensor:
-        """Training loss at per-sample levels ``t`` (colddiff/diffusion.py:86-132)."""
+                 rng=None, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Training loss at per-sample levels ``t`` (colddiff/diffusion.py:86-132).
+
+        The noise routines draw from ``generator``: ``Final_small_noise`` a
+        [B, H, W, C] normal, the ``Final_random_mean`` routines the [B, 1, 1,
+        C] new channel means.  A given ``noise`` is that draw."""
         routine = self.train_routine
-        if routine in _RNG_ROUTINES:
-            raise NotImplementedError(
-                f"train routine '{routine}' draws noise and is not ported yet; "
-                "see ROADMAP.md section 1, item 10")
+        if routine in X0_ROUTINES:
+            if routine == "Final_small_noise":
+                # resolution_diffusion_pytorch.py:671-676; the noisy image is
+                # also the target
+                x_start = x_start + 0.001 * self._normal(noise, x_start.shape, x_start,
+                                                         generator)
+            mean_shape = (x_start.shape[0], 1, 1, x_start.shape[-1])
+            if routine == "Final_random_mean":
+                x_start = self._randomize_mean(
+                    x_start, self._normal(noise, mean_shape, x_start, generator))
+            x_t = self.q_sample(x_start, t, x_end=x_end, rng=rng)
+            loss = self.loss_func(denoise_fn(x_t, t), x_start)
+            if routine == "Final_random_mean_and_actual":
+                # a second loss on the mean-randomized image, through the
+                # same operator state (JAX passes one key to both)
+                x2 = self._randomize_mean(
+                    x_start, self._normal(noise, mean_shape, x_start, generator))
+                x2_t = self.q_sample(x2, t, x_end=x_end, rng=rng)
+                loss = loss + self.loss_func(denoise_fn(x2_t, t), x2)
+            return loss
         x_t = self.q_sample(x_start, t, x_end=x_end, rng=rng)
-        if routine == "Final":
-            return self.loss_func(denoise_fn(x_t, t), x_start)
         if routine in ("Step", "Step_Gradient"):
             # predict x_{t-1} (Step) or x_{t-1} - x_t (Step_Gradient)
             # (snowification diffusion.py:416-429); t = 0 targets the clean image
@@ -104,19 +125,41 @@ class ColdDiffusion:
             return self.loss_func(denoise_fn(x_t, t), grad_n)
         raise NotImplementedError(routine)
 
+    def _normal(self, noise: Optional[torch.Tensor], shape, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """``noise``, or a standard normal of ``shape`` in ``x``'s dtype
+        drawn from ``generator``."""
+        if noise is not None:
+            if tuple(noise.shape) != tuple(shape):
+                raise ValueError(f"train routine '{self.train_routine}' takes noise of "
+                                 f"shape {tuple(shape)}, got {tuple(noise.shape)}")
+            return noise.to(x.dtype)
+        if generator is None:
+            raise ValueError(f"train routine '{self.train_routine}' draws noise: it "
+                             "needs a torch.Generator or the noise itself")
+        return torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)
+
+    @staticmethod
+    def _randomize_mean(x: torch.Tensor, new_mean: torch.Tensor) -> torch.Tensor:
+        """Replace each image's per-channel spatial mean with ``new_mean``
+        [B, 1, 1, C] (resolution_diffusion_pytorch.py:681-690)."""
+        return x - x.mean(dim=(1, 2), keepdim=True) + new_mean
+
     def loss(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
              generator: Optional[torch.Generator], *,
              t: Optional[torch.Tensor] = None, x_end: Optional[torch.Tensor] = None,
-             rng=None) -> torch.Tensor:
+             rng=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Draw t ~ U[0, T) per sample from ``generator``, then the operator's
         state (``op.sample_rng_state``, nothing for a deterministic operator),
-        and compute the training loss (reference ``forward``,
-        deblurring_diffusion_pytorch.py:977-981).  A given ``t`` or ``rng``
-        replaces its draw; ``x_end`` is the Family-B endpoint."""
+        then a noise routine's noise, and compute the training loss (reference
+        ``forward``, deblurring_diffusion_pytorch.py:977-981).  A given ``t``,
+        ``rng`` or ``noise`` replaces its draw; ``x_end`` is the Family-B
+        endpoint."""
         b = x_start.shape[0]
         if t is None:
             t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
                               device=x_start.device)
         if rng is None:
             rng = self.op.sample_rng_state(generator, b)
-        return self.p_losses(denoise_fn, x_start, t, x_end=x_end, rng=rng)
+        return self.p_losses(denoise_fn, x_start, t, x_end=x_end, rng=rng,
+                             generator=generator, noise=noise)

@@ -1,5 +1,8 @@
-"""UNet backbones (only the ConvNeXt family is ported so far)."""
+"""UNet backbones: the ConvNeXt family (``UnetConvNext``), the DDPM ResNet
+family (``UnetResNet``) and ``get_model``, which picks one by name."""
 
+from .get_model import get_model
 from .unet_convnext import UnetConvNext
+from .unet_resnet import UnetResNet
 
-__all__ = ["UnetConvNext"]
+__all__ = ["UnetConvNext", "UnetResNet", "get_model"]

@@ -1,20 +1,24 @@
-"""Weights in and out of the torch UNet.
+"""Weights in and out of the torch UNets.
 
-``UnetConvNext`` keeps the reference's state-dict names, so a reference
-``model.pt`` loads with ``load_state_dict`` and no conversion;
-:func:`load_reference_checkpoint` only picks the UNet's tensors out of the
-file.  :func:`convnext_state_dict_from_flax` is the inverse of
-``colddiff.models.import_torch.import_unet_convnext``: it turns a Flax
-``UnetConvNext`` parameter tree (nested dicts of numpy arrays) into that
-state dict, so the two packages can run on the same weights.
-:func:`train_state_from_flax` carries a whole JAX training state (params,
-EMA, optax Adam moments, step) over to the port's Trainer.
+``UnetConvNext`` and ``UnetResNet`` keep the reference's state-dict names,
+so a reference ``model.pt`` loads with ``load_state_dict`` and no
+conversion; :func:`load_reference_checkpoint` only picks the UNet's tensors
+out of the file.  :func:`convnext_state_dict_from_flax` and
+:func:`resnet_state_dict_from_flax` are the inverses of
+``colddiff.models.import_torch.import_unet_convnext`` and
+``import_unet_resnet``: they turn a Flax parameter tree (nested dicts of
+numpy arrays) into that state dict, so the two packages can run on the
+same weights; :func:`state_dict_from_flax` picks the family from the
+tree.  :func:`train_state_from_flax` carries a whole JAX training state
+(params, EMA, optax Adam moments, step) of either family over to the
+port's Trainer.
 
 Tensor conversions (inverses of the JAX importer's):
   conv, depthwise conv  [kh, kw, I, O] -> [O, I, kh, kw]
   conv-transpose        [kh, kw, I, O] -> [I, O, kh, kw], then flip(kh, kw)
   linear                [I, O]         -> [O, I]
-  norm scale/bias       [C]            -> [1, C, 1, 1]
+  ConvNeXt LayerNorm    [C]            -> [1, C, 1, 1] (``g``, ``b``)
+  ResNet GroupNorm      [C]            -> [C] (``weight``, ``bias``)
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from typing import Any, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["convnext_state_dict_from_flax", "train_state_from_flax",
-           "load_reference_checkpoint"]
+__all__ = ["convnext_state_dict_from_flax", "resnet_state_dict_from_flax",
+           "state_dict_from_flax", "train_state_from_flax", "load_reference_checkpoint"]
 
 # Flax top-level module -> (torch prefix, kind)
 _TOP = {
@@ -67,6 +71,10 @@ def _put(out: dict, prefix: str, kind: str, p: Mapping) -> None:
     if kind == "norm":
         out[f"{prefix}.g"] = _tensor(np.reshape(p["scale"], (1, -1, 1, 1)))
         out[f"{prefix}.b"] = _tensor(np.reshape(p["bias"], (1, -1, 1, 1)))
+        return
+    if kind == "group_norm":
+        out[f"{prefix}.weight"] = _tensor(p["scale"])
+        out[f"{prefix}.bias"] = _tensor(p["bias"])
         return
     k = np.asarray(p["kernel"])
     if kind == "linear":
@@ -112,6 +120,66 @@ def convnext_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# ResNet family: Flax top-level module -> (torch prefix, kind); "block"
+# holds leaves of _RESNET_LEAF (a ResnetBlock or a SoftmaxAttention)
+_RESNET_TOP = {
+    "temb_dense0": ("temb.dense.0", "linear"),
+    "temb_dense1": ("temb.dense.1", "linear"),
+    "conv_in": ("conv_in", "conv"),
+    "mid_block1": ("mid.block_1", "block"),
+    "mid_attn": ("mid.attn_1", "block"),
+    "mid_block2": ("mid.block_2", "block"),
+    "norm_out": ("norm_out", "group_norm"),
+    "conv_out": ("conv_out", "conv"),
+}
+_RESNET_LEVEL = re.compile(r"(down|up)_(\d+)_(block|attn)_(\d+)")
+_RESNET_RESAMPLE = re.compile(r"(down|up)_(\d+)_(downsample|upsample)")
+_RESNET_LEAF = {"norm1": "group_norm", "norm2": "group_norm", "norm": "group_norm",
+                "conv1": "conv", "conv2": "conv", "nin_shortcut": "conv",
+                "temb_proj": "linear", "q": "conv", "k": "conv", "v": "conv",
+                "proj_out": "conv"}
+
+
+def _resnet_prefix(name: str):
+    m = _RESNET_LEVEL.fullmatch(name)
+    if m:
+        side, i, part, j = m.groups()
+        return f"{side}.{i}.{part}.{j}", "block"
+    m = _RESNET_RESAMPLE.fullmatch(name)
+    if m:
+        side, i, part = m.groups()
+        return f"{side}.{i}.{part}.conv", "resample"
+    return _RESNET_TOP[name]
+
+
+def resnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Torch ``UnetResNet`` state dict from a Flax ``UnetResNet`` tree
+    (the inverse of ``import_unet_resnet``; ``params`` as for
+    :func:`convnext_state_dict_from_flax`)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        prefix, kind = _resnet_prefix(name)
+        if kind == "block":
+            for leaf_name, leaf in sub.items():
+                _put(out, f"{prefix}.{leaf_name}", _RESNET_LEAF[leaf_name], leaf)
+        elif kind == "resample":
+            _put(out, prefix, "conv", sub["conv"])
+        else:
+            _put(out, prefix, kind, sub)
+    return out
+
+
+def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The torch state dict of a Flax ``UnetConvNext`` or ``UnetResNet``
+    tree, the family told by its modules (only the ResNet has ``conv_in``)."""
+    inner = params["params"] if "params" in params else params
+    if "conv_in" in inner:
+        return resnet_state_dict_from_flax(inner)
+    return convnext_state_dict_from_flax(inner)
+
+
 def _adam_moments(opt_state: Any):
     """The ``ScaleByAdamState(count, mu, nu)`` inside an optax state (found
     by its fields, so optax need not be imported)."""
@@ -130,7 +198,8 @@ def train_state_from_flax(params: Mapping, ema_params: Mapping, opt_state: Any,
     """A JAX ``TrainState`` as the port's checkpoint blob
     ``{step, model, ema, opt}``, which ``Trainer.load_state`` takes.
 
-    ``model`` and ``ema`` are ``UnetConvNext`` state dicts.  ``opt`` is a
+    ``model`` and ``ema`` are ``UnetConvNext`` or ``UnetResNet`` state
+    dicts (:func:`state_dict_from_flax`).  ``opt`` is a
     ``torch.optim.Adam`` state dict over the parameters in the order
     ``param_names`` (the model's ``named_parameters()`` order): optax's
     ``ScaleByAdamState(count, mu, nu)`` becomes each parameter's ``step``,
@@ -143,9 +212,9 @@ def train_state_from_flax(params: Mapping, ema_params: Mapping, opt_state: Any,
     adam = _adam_moments(opt_state)
     if adam is None:
         raise ValueError("opt_state holds no optax ScaleByAdamState (mu, nu)")
-    model = convnext_state_dict_from_flax(params)
-    mu = convnext_state_dict_from_flax(adam.mu)
-    nu = convnext_state_dict_from_flax(adam.nu)
+    model = state_dict_from_flax(params)
+    mu = state_dict_from_flax(adam.mu)
+    nu = state_dict_from_flax(adam.nu)
     names = list(param_names)
     if sorted(names) != sorted(model):
         raise ValueError("param_names do not name the converted parameters: "
@@ -155,11 +224,14 @@ def train_state_from_flax(params: Mapping, ema_params: Mapping, opt_state: Any,
                  "exp_avg": mu[n], "exp_avg_sq": nu[n]}
              for i, n in enumerate(names)}
     return {"step": int(step), "model": model,
-            "ema": convnext_state_dict_from_flax(ema_params),
+            "ema": state_dict_from_flax(ema_params),
             "opt": {"state": state, "param_groups": [{"params": list(range(len(names)))}]}}
 
 
-_UNET_PREFIXES = ("time_mlp", "downs", "ups", "mid", "final_conv")
+# the UNet tensors of both families (``down``/``up`` cover ``downs``/``ups``),
+# as colddiff/models/import_torch.py keeps them
+_UNET_PREFIXES = ("time_mlp", "downs", "ups", "mid", "final_conv", "temb", "conv_in",
+                  "down", "up", "norm_out", "conv_out")
 
 
 def load_reference_checkpoint(path_or_blob, use_ema: bool = True) -> Dict[str, torch.Tensor]:
@@ -170,7 +242,8 @@ def load_reference_checkpoint(path_or_blob, use_ema: bool = True) -> Dict[str, t
     back to the other with a warning.  DataParallel ``module.`` prefixes and
     the ``denoise_fn.`` scope are stripped and the degradation's buffers
     (gaussian kernels, alphas, ...) dropped, as the JAX importer does.  The
-    result loads into :class:`UnetConvNext` with ``load_state_dict``.
+    result loads into :class:`UnetConvNext` or :class:`UnetResNet` with
+    ``load_state_dict``.
     """
     blob = (path_or_blob if isinstance(path_or_blob, dict)
             else torch.load(path_or_blob, map_location="cpu"))

@@ -1,9 +1,12 @@
-"""Layers of the ConvNeXt UNet family (NCHW, channels_last memory).
+"""Layers of both UNet families (NCHW, channels_last memory).
 
-Port of the ConvNeXt pieces of ``colddiff/models/layers.py``.  Module and
-parameter names are the reference's torch names
-(deblurring_diffusion_pytorch.py:83-187), so a reference state dict loads
-with ``load_state_dict`` and no conversion.
+Port of ``colddiff/models/layers.py``: the ConvNeXt pieces, and the ResNet
+family's GroupNorm-swish, softmax attention and ``swish``, with Flax's
+dropout.  Module and parameter names are the reference's torch names
+(deblurring_diffusion_pytorch.py:83-187, Model2.py:6-188), so a reference
+state dict loads with ``load_state_dict`` and no conversion.  The ResNet
+layers are stock torch ops: the JAX package computes them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ __all__ = [
     "LinearAttention",
     "Downsample",
     "Upsample",
+    "swish",
+    "group_norm_swish",
+    "FusedGroupNormSwish",
+    "SoftmaxAttention",
+    "dropout",
 ]
 
 
@@ -63,6 +71,11 @@ class SinusoidalPosEmb(nn.Module):
                          * (-math.log(10000.0) / (half - 1)))
         ang = t.to(torch.float32)[:, None] * freq[None, :]
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) (Model2.py:27-29)."""
+    return F.silu(x)
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -184,3 +197,84 @@ def Downsample(dim: int) -> nn.Module:
 def Upsample(dim: int) -> nn.Module:
     """Stride-2 4x4 transposed conv (deblurring...py:105-106)."""
     return nn.ConvTranspose2d(dim, dim, 4, 2, 1)
+
+
+def group_norm_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     num_groups: int, eps: float = 1e-6, swish: bool = True) -> torch.Tensor:
+    """GroupNorm of [B, C, H, W] ``x`` + optional swish (Model2.py Normalize
+    :32-33, nonlinearity :27-29), in the JAX package's order: statistics in
+    at least fp32, the normalized value cast to ``x``'s dtype, then
+    ``* gamma + beta`` in that dtype (``F.group_norm``'s own affine would
+    run before the cast)."""
+    xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
+    xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
+    return F.silu(xn) if swish else xn
+
+
+class FusedGroupNormSwish(nn.GroupNorm):
+    """GroupNorm(32, eps 1e-6), optionally followed by swish; ``weight`` and
+    ``bias`` are [C], the reference ``torch.nn.GroupNorm``'s names."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-6,
+                 swish: bool = True):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.swish = swish
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_swish(x, self.weight, self.bias, self.num_groups, self.eps,
+                                self.swish)
+
+
+class SoftmaxAttention(nn.Module):
+    """Full softmax self-attention over the H*W tokens (Model2.py:136-188).
+
+    As in the JAX package: the q.k logits in the activation dtype, cast to
+    at least fp32, scaled by C^-0.5, a softmax over the keys, the weights
+    cast back to q's dtype.  The keys are the last axis of the logits (a
+    softmax over a strided axis is slow on the card: PERF.md)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = FusedGroupNormSwish(dim, swish=False)
+        self.q = nn.Conv2d(dim, dim, 1)
+        self.k = nn.Conv2d(dim, dim, 1)
+        self.v = nn.Conv2d(dim, dim, 1)
+        self.proj_out = nn.Conv2d(dim, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hgt, wid = x.shape
+        h = self.norm(x)
+
+        def tokens(conv):  # [B, N, C]; a view of a channels_last output
+            return conv(h).permute(0, 2, 3, 1).reshape(b, hgt * wid, c)
+
+        q, k, v = tokens(self.q), tokens(self.k), tokens(self.v)
+        w = torch.bmm(q, k.transpose(1, 2)).to(_stat_dtype(q)) * (c ** -0.5)
+        w = torch.softmax(w, dim=-1).to(q.dtype)
+        out = torch.bmm(w, v).reshape(b, hgt, wid, c).permute(0, 3, 1, 2)
+        return x + self.proj_out(out)
+
+
+def _keep_mask(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax's dropout mask for ``x``: keep where a uniform draw is below
+    1 - p.  The draws take ``x``'s memory format, so the mask of a
+    channels_last activation is channels_last too."""
+    u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
+    return u < 1.0 - p
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: ``where(keep, x / (1 - p), 0)`` with the keep
+    mask drawn from ``generator`` alone (``F.dropout`` would draw from the
+    device's global stream).  The identity outside training or at p = 0; a
+    training call with p > 0 and no generator raises."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"dropout p={p} in training mode draws its mask from a "
+                         "torch.Generator: pass generator=, or call .eval()")
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = _keep_mask(x, p, generator)
+    return torch.where(keep, x / (1.0 - p), 0.0)

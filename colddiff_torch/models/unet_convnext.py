@@ -111,8 +111,11 @@ class UnetConvNext(nn.Module):
             nn.Conv2d(dim, out_dim if out_dim is not None else channels, 1),
         )
 
-    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, H, W, C] images; time: [B] integer levels.  Returns NHWC."""
+    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, H, W, C] images; time: [B] integer levels.  Returns NHWC.
+        ``generator`` is taken and ignored (this UNet has no dropout), as the
+        JAX module ignores ``train``, so a Trainer calls both families alike."""
         orig_x = x
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         t = None

@@ -1,7 +1,8 @@
 """Reverse samplers: a Python loop over the levels.
 
-Port of ``prepare_start``, ``sample`` and ``all_sample`` in
-``colddiff/sampling.py``, where each is one ``lax.scan``:
+Port of ``prepare_start``, ``sample``, ``all_sample`` and
+``sample_multi_step`` in ``colddiff/sampling.py``, where each is one
+``lax.scan``:
 
   Algorithm 1 ('default'):       x_{t-1} = D(x0_hat, t-1)
       (deblurring_diffusion_pytorch.py:428-434)
@@ -21,9 +22,11 @@ the input of ``prepare_start``, and x0_hat in the reverse step, also when
 ``recon_noise_std`` perturbs the degrade's input (snow blends from ``og``;
 the other operators ignore it).
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md section 1):
-models trained with ``Step``, ``Step_Gradient`` or ``Gradient_norm`` and
-``sample_multi_step`` (item 10).
+Models trained to predict something else than x0 step as their routine
+says, whatever the operator (snowification diffusion.py:239-245): ``Step``
+models predict x_{t-1}, ``Step_Gradient`` models x_{t-1} - x_t, and
+``Gradient_norm`` models the unit degradation direction, which is stepped
+against (defading_diffusion_naive.py:451-456).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .diffusion import ColdDiffusion, DenoiseFn
+from .diffusion import X0_ROUTINES, ColdDiffusion, DenoiseFn
 
 __all__ = ["SampleResult", "prepare_start", "sample", "all_sample",
            "sample_multi_step"]
@@ -40,9 +43,6 @@ __all__ = ["SampleResult", "prepare_start", "sample", "all_sample",
 _ROUTINES = ("default", "x0_step_down")  # Family A
 _X_END_ROUTINES = ("default", "x0_step_down", "ddim", "x0_step_down_spiral_2_fix",
                    "x0_step_down_spiral_2_rand")  # Family B
-# train routines whose model predicts x0, the only kind this sampler steps
-_X0_TRAIN_ROUTINES = ("Final", "Final_small_noise", "Final_random_mean",
-                      "Final_random_mean_and_actual")
 
 
 class SampleResult(NamedTuple):
@@ -67,11 +67,24 @@ def prepare_start(diffusion: ColdDiffusion, img: torch.Tensor,
 
 
 def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
-                  x0_hat: torch.Tensor, x_end: Optional[torch.Tensor],
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One reverse step from level t_cur (number of applied steps, >= 1).
-    Sampling passes no ``rng``: an operator's baked state holds for the run
-    (fade crops, defading_diffusion_gaussian.py:357-367)."""
+                  pred: torch.Tensor, x_end: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator]):
+    """One reverse step from level t_cur (number of applied steps, >= 1)
+    with the model's prediction ``pred``.  Returns (the next state, the
+    "x0_hat" that the loop keeps: direct_recons at step 0, the x0
+    trajectory's frame, and the prediction reused under ``refresh_every``),
+    as colddiff/sampling.py's ``_reverse_step`` returns it.  For a
+    ``Gradient_norm`` model that second element is ``img - pred``, not the
+    model's output.  Sampling passes no ``rng``: an operator's baked state
+    holds for the run (fade crops, defading_diffusion_gaussian.py:357-367)."""
+    train_routine = diffusion.train_routine
+    if train_routine == "Step":
+        return pred, pred
+    if train_routine == "Step_Gradient":
+        return img + pred, pred
+    if train_routine == "Gradient_norm":
+        return img - pred, img - pred
+    x0_hat = pred
     op = diffusion.op
     routine = diffusion.sampling_routine
     n_t = torch.full((img.shape[0],), t_cur, dtype=torch.long, device=img.device)
@@ -84,9 +97,9 @@ def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
         else:  # a fixed endpoint
             x2 = x_end
         return (img - op.degrade(x0_hat, n_t, x_end=x2, og=x0_hat)
-                + op.degrade(x0_hat, n_tm1, x_end=x2, og=x0_hat))
+                + op.degrade(x0_hat, n_tm1, x_end=x2, og=x0_hat)), x0_hat
     if routine == "default":
-        return op.degrade_sampling(x0_hat, n_tm1, og=x0_hat)
+        return op.degrade_sampling(x0_hat, n_tm1, og=x0_hat), x0_hat
     base = x0_hat
     if diffusion.recon_noise_std > 0.0:
         # snowification diffusion.py:222-225: perturb the reconstruction
@@ -94,7 +107,8 @@ def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
         base = x0_hat + diffusion.recon_noise_std * torch.randn(
             x0_hat.shape, generator=generator, dtype=x0_hat.dtype,
             device=x0_hat.device)
-    return img - op.degrade(base, n_t, og=x0_hat) + op.degrade(base, n_tm1, og=x0_hat)
+    return (img - op.degrade(base, n_t, og=x0_hat)
+            + op.degrade(base, n_tm1, og=x0_hat)), x0_hat
 
 
 def sample(
@@ -114,14 +128,17 @@ def sample(
 
     ``img`` must already be degraded (:func:`prepare_start`).
     ``denoise_fn(x, t)`` takes the state and the model's integer level index
-    [B] and returns the x0 prediction.  For a Family-B operator ``x_end`` is
-    the fixed endpoint of 'x0_step_down' (None, or 'ddim', estimates it per
-    step).
+    [B] and returns the model's prediction: x0 under the ``Final`` routines,
+    otherwise what ``diffusion.train_routine`` trained it to predict (see
+    the module docstring).  For a Family-B operator ``x_end`` is the fixed
+    endpoint of 'x0_step_down' (None, or 'ddim', estimates it per step).
 
-    ``refresh_every > 1`` is the JAX package's opt-in acceleration: the x0
-    prediction is refreshed only every K steps and reused in between.
+    ``refresh_every > 1`` is the JAX package's opt-in acceleration: the
+    model is called only every K steps, and the steps between reuse the
+    last step's x0_hat (for ``Gradient_norm``, ``img - pred`` of that step).
     ``recon_noise_std > 0`` (Family A) and 'x0_step_down_spiral_2_rand'
-    (Family B) draw from ``generator``, which is then required.
+    (Family B) with an x0 model draw from ``generator``, which is then
+    required.
 
     ``trajectory=True`` also returns the frames (x0_hat, the state before
     the step) of every ``traj_stride``-th step, which must divide the steps:
@@ -131,10 +148,6 @@ def sample(
     ``torch.inference_mode()``.
     """
     op, routine = diffusion.op, diffusion.sampling_routine
-    if diffusion.train_routine not in _X0_TRAIN_ROUTINES:
-        raise NotImplementedError(
-            f"sampling a '{diffusion.train_routine}' model is not ported yet; "
-            "see ROADMAP.md section 1, item 10")
     routines = _X_END_ROUTINES if op.requires_x_end else _ROUTINES
     if routine not in routines:
         raise NotImplementedError(
@@ -143,7 +156,9 @@ def sample(
             "endpoint operator, as in colddiff/sampling.py)")
     if refresh_every < 1:
         raise ValueError(f"refresh_every must be >= 1, got {refresh_every}")
-    if op.requires_x_end:
+    if diffusion.train_routine not in X0_ROUTINES:
+        draws = False
+    elif op.requires_x_end:
         draws = routine == "x0_step_down_spiral_2_rand"
     else:
         draws = routine == "x0_step_down" and diffusion.recon_noise_std > 0.0
@@ -158,14 +173,17 @@ def sample(
     x0_traj = xt_traj = None
     with torch.inference_mode(not grad):
         cur = img
-        direct = torch.zeros_like(img)
+        direct = torch.zeros_like(img) if steps == 0 else None
         x0_hat = None
         for k in range(steps):
             t_cur = steps - k
             if k % refresh_every == 0:
                 level = torch.full((img.shape[0],), t_cur - 1, dtype=torch.long,
                                    device=img.device)
-                x0_hat = denoise_fn(cur, level)
+                pred = denoise_fn(cur, level)
+            else:
+                pred = x0_hat
+            new, x0_hat = _reverse_step(diffusion, cur, t_cur, pred, x_end, generator)
             if k == 0:
                 direct = x0_hat
             if trajectory and k % traj_stride == 0:
@@ -175,7 +193,7 @@ def sample(
                     xt_traj = cur.new_empty((frames, *cur.shape))
                 x0_traj[k // traj_stride] = x0_hat
                 xt_traj[k // traj_stride] = cur
-            cur = _reverse_step(diffusion, cur, t_cur, x0_hat, x_end, generator)
+            cur = new
     return SampleResult(img, direct, cur, x0_traj, xt_traj)
 
 
@@ -190,7 +208,52 @@ def all_sample(diffusion: ColdDiffusion, denoise_fn: DenoiseFn, img: torch.Tenso
                   trajectory=True, traj_stride=traj_stride, refresh_every=refresh_every)
 
 
-def sample_multi_step(*args, **kwargs) -> torch.Tensor:
-    """Per-sample partial reverse runs: not ported yet."""
-    raise NotImplementedError(
-        "sample_multi_step is not ported yet; see ROADMAP.md section 1, item 10")
+def sample_multi_step(diffusion: ColdDiffusion, denoise_fn: DenoiseFn,
+                      img: torch.Tensor, t_start, t_end, *,
+                      x_end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample partial reverse runs: sample i goes from level t_start[i]
+    down to t_end[i] (snowification diffusion.py:247-256), with
+    colddiff/sampling.py's semantics.
+
+    Each of at most T iterations calls the model on the whole batch at
+    index ``max(level - 1, 0)`` and steps with ``n_t = max(level, 1)``; a
+    sample whose level has reached its t_end keeps its state.  The loop
+    ends once no sample is active, which leaves the output as it is.  The
+    step: ``Step`` models' prediction is the next state, ``Step_Gradient``
+    models' is added to it; every other routine (``Gradient_norm``
+    included) steps as an x0 model, Family B toward ``x_end`` or, when it
+    is None, the endpoint ``op.x_end_from_xt`` estimates, Family A by
+    ``degrade_sampling`` under 'default' and by Algorithm 2 otherwise.
+    Upstream's own loop keeps the raw prediction at every level (a
+    tuple-order bug); the JAX package composes the step as intended, and so
+    does this port.  ``recon_noise_std`` is ignored and nothing is drawn.
+    Runs under ``torch.inference_mode()``.
+    """
+    op = diffusion.op
+    b = img.shape[0]
+    level = torch.as_tensor(t_start, device=img.device).long().broadcast_to((b,))
+    t_end = torch.as_tensor(t_end, device=img.device).long().broadcast_to((b,))
+    # sample i is active for t_start[i] - t_end[i] iterations
+    iters = min(diffusion.num_timesteps, max(0, int((level - t_end).max())))
+    with torch.inference_mode():
+        cur = img
+        for _ in range(iters):
+            active = level > t_end
+            x0_hat = denoise_fn(cur, torch.clamp(level - 1, min=0))
+            n_t = torch.clamp(level, min=1)
+            if diffusion.train_routine == "Step":
+                new = x0_hat
+            elif diffusion.train_routine == "Step_Gradient":
+                new = cur + x0_hat
+            elif op.requires_x_end:
+                x2 = x_end if x_end is not None else op.x_end_from_xt(x0_hat, cur, n_t)
+                new = (cur - op.degrade(x0_hat, n_t, x_end=x2, og=x0_hat)
+                       + op.degrade(x0_hat, n_t - 1, x_end=x2, og=x0_hat))
+            elif diffusion.sampling_routine == "default":
+                new = op.degrade_sampling(x0_hat, n_t - 1, og=x0_hat)
+            else:
+                new = (cur - op.degrade(x0_hat, n_t, og=x0_hat)
+                       + op.degrade(x0_hat, n_t - 1, og=x0_hat))
+            cur = torch.where(active.reshape(-1, *([1] * (cur.dim() - 1))), new, cur)
+            level = torch.where(active, level - 1, level)
+    return cur

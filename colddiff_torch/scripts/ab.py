@@ -5,6 +5,7 @@
     python -m colddiff_torch.scripts.ab sample ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab profile ROOT [ROOT ...]
     python -m colddiff_torch.scripts.ab probes ROOT [ROOT ...]
+    python -m colddiff_torch.scripts.ab resnet ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a checkout (an unpacked ``git archive``
 will do) with its own ``chip_smoke.py`` and ``colddiff_torch/``.  The roots
@@ -36,6 +37,13 @@ Each child prints one JSON line per measurement:
   each of the four probe kernels its device us of each run, its
   single-call ``call_ms`` and max error against the plain version, and
   the launch floor (an empty ``torch.cuda._sleep(0)``) of each run.
+- ``resnet``: phase 21's configuration (the CIFAR-10 ``UnetResNet``, blur
+  Special_6 T=50, 32 px): a bf16 forward at B=32, 10 bf16 reverse steps and
+  one ``Trainer.train_step`` (B=32 x accum 2, bf16, dropout live), each
+  with its wall ms (the median of 5, ending in a synchronise), the host's
+  ms to queue it, and under ``torch.profiler`` the device ms its kernels
+  take, their count, the device's idle share (1 - device / wall) and the
+  8 kernels that take the most device time.
 
 Without a CUDA device it exits non-zero at once.
 """
@@ -47,7 +55,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-MODES = ("fronts", "main", "sample", "profile", "probes")
+MODES = ("fronts", "main", "sample", "profile", "probes", "resnet")
 WIDE = ((1280, 16, True), (2048, 16, True), (4096, 8, True, 2))  # C > 1024; B = 2 at 4096
 FRONTS = ((3, 128, False), (8, 128, True), (16, 128, True), (31, 128, True),  # (C, H, norm[, B])
           (64, 128, True), (64, 64, True), (128, 64, True), (256, 64, True), (256, 32, True),
@@ -160,6 +168,69 @@ def _profile(cs, dev) -> None:
         print(json.dumps(row), flush=True)
 
 
+def _device_kernels(fn, dev):
+    """(device ms, launches, {kernel name: device ms}) of one call of ``fn``
+    under torch.profiler (CUDA activity only: the kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us:
+            kernels[e.key] = us / 1e3
+            launches += e.count
+    return sum(kernels.values()), launches, kernels
+
+
+def _resnet(cs, dev) -> None:
+    import statistics
+    import tempfile
+    import time
+
+    import torch
+
+    d = cs.cifar_blur(dev)
+    model = cs.seeded_resnet(cs.SEED, dev).to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    x = torch.rand(cs.RESNET_BATCH, cs.CIFAR, cs.CIFAR, 3, generator=gen, device=dev) * 2 - 1
+    t = torch.full((cs.RESNET_BATCH,), cs.CIFAR_T // 2, device=dev)
+    denoise = cs.bf16_denoise(model)
+    start = cs.prepare_start(d, x)
+    with tempfile.TemporaryDirectory() as folder:
+        tr = cs.Trainer(d, cs.seeded_resnet(cs.SEED, dev), cs.SyntheticDataset(cs.CIFAR, 3),
+                        train_batch_size=cs.RESNET_BATCH, gradient_accumulate_every=cs.ACCUM,
+                        bf16=True, results_folder=folder, num_workers=1, seed=cs.SEED,
+                        device=dev)
+        batch = tr._next_superbatch()
+        steps = 10
+        calls = {"forward": lambda: torch.inference_mode()(denoise)(x, t),
+                 f"sample_{steps}_steps": lambda: cs.sample(d, denoise, start, t=steps),
+                 "train_step": lambda: tr.train_step(batch)}
+        for name, fn in calls.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize(dev)
+            walls, queues = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                queues.append(1e3 * (time.perf_counter() - t0))
+                torch.cuda.synchronize(dev)
+                walls.append(1e3 * (time.perf_counter() - t0))
+            wall = statistics.median(walls)
+            busy, launches, kernels = _device_kernels(fn, dev)
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+            print(json.dumps({"call": name, "batch": cs.RESNET_BATCH, "wall_ms": wall,
+                              "walls_ms": walls, "queue_ms": statistics.median(queues),
+                              "device_ms": busy, "launches": launches,
+                              "idle_share": 1 - busy / wall, "top_kernels_ms": top}),
+                  flush=True)
+
+
 def _probes(cs, dev) -> None:
     runs = [cs.probe_kernels(dev) for _ in range(PROBE_RUNS)]
     for i, row in enumerate(runs[0][0]):
@@ -189,7 +260,8 @@ def child(mode: str, root: str) -> int:
     _build.load_library()
     print(json.dumps({"root": root, "mode": mode, "card": cs.gpu_name_and_power()}), flush=True)
     {"fronts": _fronts, "main": _main_paths, "sample": _sample,
-     "profile": _profile, "probes": _probes}[mode](cs, torch.device("cuda", 0))
+     "profile": _profile, "probes": _probes,
+     "resnet": _resnet}[mode](cs, torch.device("cuda", 0))
     return 0
 
 

@@ -16,17 +16,25 @@ As in the JAX Trainer:
   - the denoiser's output is cast to fp32, so the loss is fp32;
   - each microbatch takes its Family-B endpoint from ``second_dataset``
     (``mix``: a second loader, seeded ``seed + 1``) or draws it
-    (``op.sample_x_end``), then draws its t and its operator state
-    (``op.sample_rng_state``: fade's crops), all from one
-    ``torch.Generator`` seeded by ``seed``;
+    (``op.sample_x_end``), then draws its t, its operator state
+    (``op.sample_rng_state``: fade's crops) and a noise routine's noise
+    (``Final_small_noise``, ``Final_random_mean[_and_actual]``), all from
+    one ``torch.Generator`` seeded by ``seed``;
+  - a model with dropout (``UnetResNet``) draws its masks in training from
+    a generator of its own, seeded from ``seed``, so the draws above do
+    not move with the model; every model call of one microbatch's loss
+    draws the same masks, as JAX applies the model with one dropout key
+    per microbatch (colddiff/train.py:277-286).  EMA sampling runs the
+    model in ``eval()`` with no generator: no dropout;
   - only operators with ``random_snow`` are reset at each step
     (colddiff/train.py:468-478), from a generator of their own seeded by the
     step, so a fade operator's baked crops never change in training.
 
 Checkpoints are ``torch.save`` blobs ``{step, model, ema, opt, generator,
-op}`` (``results_folder/model.pt``); ``model`` and ``ema`` have the
-reference's state-dict names, and ``op`` holds the operator's tensors (a
-random snow field), as the JAX checkpoint holds the operator.
+dropout_generator, op}`` (``results_folder/model.pt``); ``model`` and
+``ema`` have the reference's state-dict names, and ``op`` holds the
+operator's tensors (a random snow field), as the JAX checkpoint holds the
+operator.
 
 Not ported yet: multi-process training and parameter sharding (ROADMAP.md
 section 1, item 12), the restart supervisor (item 13), and ``remat``,
@@ -133,6 +141,8 @@ class Trainer:
         self.opt = torch.optim.Adam(self.model.parameters(), lr=train_lr,
                                     betas=(0.9, 0.999), eps=1e-8)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            (1009 << 32) + seed)
         self.dl = cycle(DataLoader(dataset, train_batch_size,
                                    num_workers=num_workers, seed=seed))
         self.dl2 = (cycle(DataLoader(second_dataset, train_batch_size,
@@ -167,19 +177,33 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
 
-    def _denoise_fn(self, model: torch.nn.Module):
-        """``denoise(x, t)`` of ``model``, returning fp32 (colddiff/train.py:245-263)."""
+    def _denoise_fn(self, model: torch.nn.Module,
+                    generator: Optional[torch.Generator] = None):
+        """``denoise(x, t)`` of ``model``, returning fp32 (colddiff/train.py:
+        245-263).  With ``generator``, the model draws its dropout masks from
+        it, each call from the generator's state at this call, so all calls
+        draw the same masks, as all JAX applies with one dropout key do."""
+        kwargs = {} if generator is None else {"generator": generator}
+        state = None if generator is None else generator.get_state()
+
+        def replay():
+            if state is not None:
+                generator.set_state(state)
+
         if self.bf16:
             params = bf16_params(model.named_parameters())
 
             def fn(x, t):
-                out = torch.func.functional_call(model, params, (x.to(torch.bfloat16), t))
+                replay()
+                out = torch.func.functional_call(model, params,
+                                                 (x.to(torch.bfloat16), t), kwargs)
                 return out.to(torch.float32)
         else:
             dtype = next(model.parameters()).dtype
 
             def fn(x, t):
-                return model(x.to(dtype), t).to(torch.float32)
+                replay()
+                return model(x.to(dtype), t, **kwargs).to(torch.float32)
         return fn
 
     def _next_superbatch(self, dl=None) -> torch.Tensor:
@@ -220,7 +244,7 @@ class Trainer:
             x = batch[i]
             x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
                        else x_end[i])
-            fn = self._denoise_fn(self.model)
+            fn = self._denoise_fn(self.model, self.dropout_generator)
             loss = self.diffusion.loss(fn, x, self.generator,
                                        t=None if t is None else t[i], x_end=x_end_i,
                                        rng=None if rng is None else rng[i])
@@ -313,15 +337,19 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def state(self) -> dict:
-        """The checkpoint blob ``{step, model, ema, opt, generator, op}``."""
+        """The checkpoint blob ``{step, model, ema, opt, generator,
+        dropout_generator, op}``."""
         return {"step": self.step, "model": self.model.state_dict(),
                 "ema": self.ema_model.state_dict(), "opt": self.opt.state_dict(),
-                "generator": self.generator.get_state(), "op": self.diffusion.op.state()}
+                "generator": self.generator.get_state(),
+                "dropout_generator": self.dropout_generator.get_state(),
+                "op": self.diffusion.op.state()}
 
     def load_state(self, blob: dict) -> None:
         """Restore a blob of :meth:`state`, of
-        ``models.convert.train_state_from_flax`` (no generator, no operator)
-        or of a checkpoint older than the operator's entry (no ``op``).
+        ``models.convert.train_state_from_flax`` (no generators, no
+        operator) or of a checkpoint older than the operator's or the
+        dropout generator's entry (no ``op``, no ``dropout_generator``).
 
         Adam's moments and step counts come from the blob, its
         hyperparameters stay this Trainer's, as in the JAX Trainer, whose
@@ -332,8 +360,9 @@ class Trainer:
         self.opt.load_state_dict(blob["opt"])
         for group, hyper in zip(self.opt.param_groups, own):
             group.update(hyper)
-        if "generator" in blob:
-            self.generator.set_state(blob["generator"].cpu())
+        for key in ("generator", "dropout_generator"):
+            if key in blob:
+                getattr(self, key).set_state(blob[key].cpu())
         if "op" in blob:
             self.diffusion = dataclasses.replace(
                 self.diffusion, op=self.diffusion.op.with_state(blob["op"], self.device))

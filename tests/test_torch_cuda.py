@@ -310,3 +310,93 @@ def test_bf16_trainer_train_loop_snapshots_on_the_card(cuda, tmp_path):
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
     for name in ("og", "xt", "direct_recons", "sample", "model"):
         assert list(tmp_path.glob(f"{name}*")), name
+
+
+# ---------------------------------------------------------------------- #
+# the ResNet UNet, sample_multi_step and the metrics on the card (stock
+# torch ops: no hand-written kernel runs here)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,size", [
+    (dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,)), 16),
+    (dict(ch=128, ch_mult=(1, 2, 2, 2), num_res_blocks=2, attn_resolutions=(16,)), 32),
+])
+def test_resnet_unet_gpu_matches_cpu(cuda, cfg, size):
+    """fp32 with TF32 off, rel L2 <= 1e-3 as the ConvNeXt UNet is held; the
+    wider case is the CIFAR-10 configuration of get_model."""
+    from colddiff_torch.models import UnetResNet
+
+    torch.manual_seed(0)
+    model = UnetResNet(**cfg, resolution=size, dropout=0.1).eval()
+    x = torch.rand(2, size, size, 3) * 2 - 1
+    t = torch.tensor([3, 40])
+    with torch.inference_mode():
+        want = model(x, t)
+        before = convnext_front.launches
+        got = model.to(cuda)(x.to(cuda), t.to(cuda)).cpu()
+    assert convnext_front.launches == before  # the ResNet family launches no front
+    rel = ((got.double() - want.double()).norm() / want.double().norm()).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+def test_dropout_generator_on_the_card(cuda):
+    """A CUDA generator: the same seed gives the same masks, another seed
+    others, and the device's global stream plays no part."""
+    from colddiff_torch.models import layers
+
+    x = torch.randn(4, 64, 16, 16, device=cuda).contiguous(memory_format=torch.channels_last)
+
+    def run(seed):
+        return layers.dropout(x, 0.1, True, torch.Generator(device=cuda).manual_seed(seed))
+
+    a = run(3)
+    torch.cuda.manual_seed(123)
+    assert torch.equal(a, run(3)) and not torch.equal(a, run(4))
+    keep = (a != 0).float().mean().item()
+    assert 0.85 < keep < 0.95
+    with pytest.raises(ValueError, match="generator"):
+        layers.dropout(x, 0.1, True, None)
+
+
+@pytest.mark.cuda
+def test_sample_multi_step_gpu_matches_cpu(cuda):
+    from colddiff_torch.diffusion import ColdDiffusion
+    from colddiff_torch.operators import get_operator
+    from colddiff_torch.sampling import sample_multi_step
+
+    torch.manual_seed(0)
+    model = UnetConvNext(dim=8, dim_mults=(1, 2)).eval()
+    x = torch.rand(4, 16, 16, 3) * 2 - 1
+    t_start, t_end = torch.tensor([8, 5, 3, 1]), torch.tensor([0, 2, 0, 0])
+    runs = []
+    for dev in ("cpu", cuda):
+        op = get_operator("blur", image_size=16, timesteps=8,
+                          blur_routine="Exponential_reflect", kernel_size=15,
+                          kernel_std=0.01, device=dev)
+        d = ColdDiffusion(op=op, image_size=16, sampling_routine="x0_step_down")
+        m = model.to(dev)
+        runs.append(sample_multi_step(d, lambda xt, t: m(xt, t), x.to(dev), t_start.to(dev),
+                                      t_end.to(dev)).cpu())
+    want, got = runs
+    rel = ((got.double() - want.double()).norm() / want.double().norm()).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+def test_metrics_gpu_matches_cpu_and_refuse_tf32(cuda, monkeypatch):
+    from colddiff_torch.eval import metrics
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand(4, 32, 32, 3, generator=gen) * 2 - 1
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen)).clamp(-1, 1)
+    for fn in (metrics.ssim, metrics.rmse, metrics.psnr):
+        want, got = fn(a, b), fn(a.to(cuda), b.to(cuda)).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for flag in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flag, "allow_tf32", True)
+        for fn in (metrics.ssim, metrics.rmse, metrics.psnr):
+            with pytest.raises(RuntimeError, match="fp32"):
+                fn(a.to(cuda), b.to(cuda))
+        monkeypatch.undo()  # back to False, as the cuda fixture set it

@@ -31,6 +31,7 @@ from colddiff.models import UnetConvNext as JUnetConvNext
 from colddiff.operators.blur import GaussianBlur as JGaussianBlur
 from colddiff.sampling import prepare_start as jprepare_start
 from colddiff.sampling import sample as jsample
+from colddiff.sampling import sample_multi_step as jsample_multi_step
 from colddiff_torch.diffusion import ColdDiffusion
 from colddiff_torch.models import UnetConvNext
 from colddiff_torch.models.convert import convnext_state_dict_from_flax
@@ -132,21 +133,57 @@ def test_grad_flows_when_asked():
     assert scale.grad is not None and torch.isfinite(scale.grad)
 
 
-@pytest.mark.parametrize("call,match", [("step_model", "ROADMAP.md"), ("ddim", "ddim"),
-                                        ("multi_step", "ROADMAP.md")])
+@pytest.mark.parametrize("call,match", [("ddim", "ddim")])
 def test_unported_branches_raise(call, match):
-    """What is still unported names its ROADMAP.md item; 'ddim' on a
-    Family-A operator raises, as the JAX sampler does.  (The Family-B,
-    trajectory and all_sample cases are ported: their parity tests are in
-    tests/test_torch_sampling_ops.py.)"""
+    """'ddim' on a Family-A operator raises, as the JAX sampler does.  (The
+    Family-B, trajectory and all_sample cases are ported: their parity
+    tests are in tests/test_torch_sampling_ops.py; Step-family models and
+    sample_multi_step below and in tests/test_torch_routines.py.)"""
     op = get_operator("blur", **BLUR, device="cpu")
     x = torch.zeros(1, 16, 16, 3)
     ident = lambda xt, t: xt  # noqa: E731
     make = functools.partial(ColdDiffusion, op=op, image_size=16)
-    calls = {
-        "step_model": lambda: sample(make(train_routine="Step"), ident, x),
-        "ddim": lambda: sample(make(sampling_routine="ddim"), ident, x),
-        "multi_step": lambda: sample_multi_step(make(), ident, x, 3, 0),
-    }
+    calls = {"ddim": lambda: sample(make(sampling_routine="ddim"), ident, x)}
     with pytest.raises(NotImplementedError, match=match):
         calls[call]()
+
+
+def _models(flax_params):
+    """The fp32 dim-8 UNet on both sides, its output scaled by 0.1 (a Step
+    model's sum of outputs stays O(1))."""
+    jmodel = JUnetConvNext(dim=DIM, dim_mults=MULTS)
+    apply = jax.jit(jmodel.apply)
+    model = UnetConvNext(dim=DIM, dim_mults=MULTS)
+    model.load_state_dict(convnext_state_dict_from_flax(flax_params), strict=True)
+    model.eval()
+    return (lambda xt, t: 0.1 * apply(flax_params, xt, t),
+            lambda xt, t: 0.1 * model(xt, t))
+
+
+def test_step_model_sample_matches_jax(flax_params):
+    """A model trained with 'Step' predicts x_{t-1}: the sampler steps to
+    its prediction (snowification diffusion.py:425-426), at the fp32
+    Algorithm-2 tolerance, 1e-4."""
+    kw = dict(train_routine="Step", sampling_routine="x0_step_down")
+    jd = JColdDiffusion(op=JGaussianBlur.create(**BLUR), image_size=16, **kw)
+    d = ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), image_size=16, **kw)
+    jdenoise, denoise = _models(flax_params)
+    x = np.random.default_rng(6).uniform(-1.0, 1.0, (2, 16, 16, 3)).astype(np.float32)
+    want = jax.jit(lambda img: jsample(jd, jdenoise, jprepare_start(jd, img)))(jnp.asarray(x))
+    got = sample(d, denoise, prepare_start(d, torch.from_numpy(x)))
+    for g, w in ((got.direct_recons, want.direct_recons), (got.img, want.img)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4)
+
+
+def test_sample_multi_step_matches_jax(flax_params):
+    """Per-sample partial runs of the flagship routine (x0_step_down), from
+    t_start down to t_end, at the fp32 Algorithm-2 tolerance, 1e-4."""
+    jd, d = _diffusions("x0_step_down")
+    jdenoise, denoise = _models(flax_params)
+    x = np.random.default_rng(7).uniform(-1.0, 1.0, (3, 16, 16, 3)).astype(np.float32)
+    t_start, t_end = np.array([8, 5, 1]), np.array([0, 3, 0])
+    want = jsample_multi_step(jd, jdenoise, jnp.asarray(x), jnp.asarray(t_start),
+                              jnp.asarray(t_end))
+    got = sample_multi_step(d, denoise, torch.from_numpy(x), torch.from_numpy(t_start),
+                            torch.from_numpy(t_end))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)

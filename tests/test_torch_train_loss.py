@@ -150,11 +150,29 @@ def test_loss_draws_every_t_from_the_generator(x_start):
 
 @pytest.mark.parametrize("routine", ["Final_small_noise", "Final_random_mean",
                                      "Final_random_mean_and_actual"])
-def test_noise_routines_name_their_roadmap_item(x_start, routine):
+def test_noise_routines_draw_from_the_generator(x_start, routine):
+    """``loss`` draws t, then the routine's noise, from its generator: the
+    same as ``p_losses`` given that noise.  Without a generator or the
+    noise, or with noise of the wrong shape, the routine raises.  (Parity
+    with JAX's draws: tests/test_torch_routines.py.)"""
     _, d = _diffusions(routine, "l1")
     x = torch.from_numpy(x_start.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        d.p_losses(lambda xt, t: xt, x, torch.zeros(3, dtype=torch.long))
+
+    def denoise(xt, t):
+        return xt * 0.5 + t.reshape(-1, 1, 1, 1) * 0.01
+
+    gen = torch.Generator().manual_seed(3)
+    got = d.loss(denoise, x, gen)
+    gen.manual_seed(3)
+    t = torch.randint(0, BLUR["timesteps"], (3,), generator=gen)
+    shape = x.shape if routine == "Final_small_noise" else (3, 1, 1, 3)
+    noise = torch.randn(shape, generator=gen)
+    assert torch.equal(got, d.p_losses(denoise, x, t, noise=noise))
+    assert not torch.equal(got, d.p_losses(denoise, x, t, noise=noise * 2))
+    with pytest.raises(ValueError, match="Generator"):
+        d.p_losses(denoise, x, t)
+    with pytest.raises(ValueError, match="shape"):
+        d.p_losses(denoise, x, t, noise=torch.zeros(3, 16, 16, 1))
 
 
 def test_unknown_loss_type_raises(x_start):

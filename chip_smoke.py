@@ -100,6 +100,18 @@ checks it, in phases:
      and t_end: an oracle denoiser ends each sample at the clean batch
      degraded to its t_end, and the fp32 ResNet's run on the card matches
      its CPU run.
+ 24. the eval surface on the flagship path (``EvalHarness``, bf16 compute,
+     ``model_chunk`` 16): ``fid_distance_decrease_from_manifold`` over 64
+     synthetic 128 px images at batch_size 32 with the fallback extractor,
+     timed (images/s, peak memory), its front launches checked (17 a
+     forward, the stem through the small-C kernel, two chunks a step), its
+     first batch's samples checked equal to a direct prepare_start +
+     sample, and its metric dict held against RMSE, SSIM and the proxy FID
+     recomputed on the CPU from the card's images; ``gmm_mean_samples``
+     (num 16) with its fronts counted; the Inception pool3 graph on
+     ``synth_state_dict`` weights on the card vs the CPU at B=8 and its
+     card time per image at B=64; ``fit_gmm`` on the card vs the CPU from
+     one init.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -132,10 +144,12 @@ from collections import Counter
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 from colddiff_torch.data import SyntheticDataset
 from colddiff_torch.diffusion import ColdDiffusion
-from colddiff_torch.eval import metrics
+from colddiff_torch.eval import EvalHarness, fit_gmm, metrics
+from colddiff_torch.eval import fid as fid_mod
 from colddiff_torch.models import UnetConvNext, get_model
 from colddiff_torch.models.convert import load_reference_checkpoint
 from colddiff_torch.models.layers import ChannelLayerNorm, ConvNextBlock
@@ -172,6 +186,14 @@ RESNET_BATCH = 32
 CIFAR_T = 50  # blur Special_6_routine (BASELINE.md:24)
 ROUTINE_STEPS = 2  # phase 22: Trainer.train() steps a routine, after one warm-up
 MULTI_STEP_CPU_BATCH = 4  # phase 23: the fp32 model run on the card vs the CPU
+EVAL_IMAGES = 64  # phase 24: the manifold harness's images, in batches of 32
+EVAL_BATCH = 32
+EVAL_CHUNK = 16  # the harness's model_chunk: two forwards a reverse step
+EVAL_GMM_NUM = 16
+FID_RTOL = 1e-3  # a proxy FID from the card's features vs the CPU's (atol 1e-4)
+INCEPTION_REL_L2 = 1e-3  # ~96 fp32 conv layers, cuDNN vs oneDNN summation orders
+INCEPTION_CHECK_B, INCEPTION_TIME_B = 8, 64
+GMM_REL = 1e-4  # fit_gmm's fields on the card vs the CPU, relative to each field's max
 METRIC_REL = 1e-5  # ssim / rmse / psnr on the card vs the CPU
 DEGRADE_REL = 1e-5  # an operator's degrade on the card vs the CPU, relative to max |y|
 TRAJ_STRIDE = 10
@@ -1122,6 +1144,146 @@ def multi_step_path(device, card: str):
                 oracle_seconds=oracle_s, cuda_seconds=secs[0], phase_seconds=seconds)
 
 
+def eval_path(device, card: str):
+    """Phase 24: the eval surface on the flagship configuration.  Returns
+    the phase's row."""
+    t_phase = time.perf_counter()
+    d = blur_diffusion(IMG, T, device)
+    ds = SyntheticDataset(IMG, 3, length=EVAL_IMAGES, seed=SEED + 15)
+    row = dict(phase="24")
+    with tempfile.TemporaryDirectory() as folder:
+        h = EvalHarness(d, seeded_unet(SEED, device, **FLAGSHIP), results_folder=folder,
+                        bf16=True, model_chunk=EVAL_CHUNK, device=device)
+        kept = []  # each batch and the four rows the harness keeps of it
+        run_batch = h._manifold_batch
+
+        def keep(batch, gen, *rows):
+            run_batch(batch, gen, *rows)
+            kept.append((batch, [r[-1] for r in rows]))
+
+        h._manifold_batch = keep
+        sample(h.d, h.denoise, prepare_start(h.d, h._tensor(ds[0][None])), t=2)  # warm-up
+        base = reset_peak(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        scores = h.fid_distance_decrease_from_manifold(ds, end=EVAL_IMAGES,
+                                                       batch_size=EVAL_BATCH)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        forwards = T * math.ceil(EVAL_BATCH / EVAL_CHUNK) * (EVAL_IMAGES // EVAL_BATCH)
+        if launches != (17 * forwards, forwards, 0):
+            raise AssertionError(f"manifold harness launched {launches} (all, small-C, "
+                                 f"wide-C) fronts; expected {(17 * forwards, forwards, 0)}")
+        row.update(manifold_seconds=seconds, manifold_images_per_s=EVAL_IMAGES / seconds,
+                   manifold_peak_bytes=torch.cuda.max_memory_allocated(device),
+                   base_bytes=base, manifold_launches=launches[0],
+                   manifold_small_c_launches=launches[1], scores=scores)
+
+        # its first batch's samples == a direct prepare_start + sample
+        batch, rows = kept[0]
+        direct = sample(h.d, h.denoise, prepare_start(h.d, h._tensor(batch)))
+        for name, got, want in (("xt", rows[1], direct.xt), ("img", rows[2], direct.img),
+                                ("direct_recons", rows[3], direct.direct_recons)):
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"manifold harness {name} != direct sample: max err "
+                                     f"{np.abs(got - want.cpu().numpy()).max()}")
+
+        # the metric dict against its CPU recomputation from the card's images
+        og, *others = (np.concatenate([k[1][i] for k in kept]) for i in range(4))
+        feats = fid_mod.fid_features_fn(device="cpu")
+        og01 = torch.from_numpy((og + 1.0) * 0.5)
+        worst = {"fid": 0.0, "metric": 0.0}
+        for name, other in zip(("degraded", "sampled", "direct"), others):
+            other01 = torch.from_numpy((other + 1.0) * 0.5)
+            want = {f"proxy_fid_{name}": fid_mod.calculate_fid_given_samples(
+                        [og, other], features=feats),
+                    f"rmse_{name}": metrics.rmse(og01, other01).item(),
+                    f"ssim_{name}": metrics.ssim(og01, other01, data_range=1.0).item()}
+            for k, w in want.items():
+                kind, rtol, atol = (("fid", FID_RTOL, 1e-4) if k.startswith("proxy_fid")
+                                    else ("metric", METRIC_REL, 0.0))
+                err = abs(scores[k] - w)
+                worst[kind] = max(worst[kind], err / abs(w))
+                if not (err <= rtol * abs(w) + atol and math.isfinite(scores[k])):
+                    raise AssertionError(f"manifold harness {k}: card {scores[k]}, cpu {w}")
+        row.update(fid_rel_err=worst["fid"], metric_rel_err=worst["metric"])
+
+        # gmm_mean_samples, fronts counted
+        gen = torch.Generator(device=device).manual_seed(SEED + 16)
+        zero_launches()
+        t0 = time.perf_counter()
+        res = h.gmm_mean_samples(ds, clusters=1, num=EVAL_GMM_NUM, noise_level=0.002,
+                                 generator=gen)
+        torch.cuda.synchronize(device)
+        gmm_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if not (res.img.shape == (EVAL_GMM_NUM, IMG, IMG, 3)
+                and torch.isfinite(res.img).all().item()):
+            raise AssertionError(f"gmm_mean_samples: {res.img.shape}, not finite/shaped")
+        if launches != (17 * T, T, 0):
+            raise AssertionError(f"gmm_mean_samples launched {launches} fronts; expected "
+                                 f"{(17 * T, T, 0)}")
+        row.update(gmm_mean_seconds=gmm_s, gmm_mean_images_per_s=EVAL_GMM_NUM / gmm_s,
+                   gmm_mean_launches=launches[0])
+        del h, res
+
+        # the Inception pool3 graph on synthetic weights, card vs CPU
+        path = f"{folder}/pt_inception_synth.pth"
+        torch.save({k: torch.as_tensor(v)
+                    for k, v in fid_mod.synth_state_dict(dtype=np.float32).items()}, path)
+        inc = {dev: fid_mod.inception_features_from_torch_checkpoint(path, dev)
+               for dev in (device, "cpu")}
+    x = torch.rand(INCEPTION_TIME_B, IMG, IMG, 3, generator=gen, device=device) * 2 - 1
+    small = x[:INCEPTION_CHECK_B]
+    inc_rel = rel_l2(inc[device](small), inc["cpu"](small.cpu()))
+    if not inc_rel <= INCEPTION_REL_L2:
+        raise AssertionError(f"Inception pool3 cuda vs cpu: rel L2 {inc_rel}")
+    inc_ms = cuda_median_ms(lambda: inc[device](x), warmup=2, iters=5)
+    with FlopCounterMode(display=False) as flops:
+        inc[device](x)
+    inc_bound_ms = bound(0.0, flops.get_total_flops())[0]
+    row.update(inception_rel_l2=inc_rel, inception_ms=inc_ms,
+               inception_us_per_image=1e3 * inc_ms / INCEPTION_TIME_B,
+               inception_flops=flops.get_total_flops(), inception_bound_ms=inc_bound_ms)
+
+    # fit_gmm, card vs CPU from one init: 4 clusters of 2,000 points in 16-d
+    centers = torch.rand(4, 16, generator=gen, device=device) * 6 - 3
+    pts = (centers.repeat_interleave(500, 0)
+           + 0.2 * torch.randn(2000, 16, generator=gen, device=device))
+    init = torch.randperm(2000, generator=gen, device=device)[:4]
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fitted = fit_gmm(pts, 4, init_idx=init)
+    torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    want = fit_gmm(pts.cpu(), 4, init_idx=init.cpu())
+    gmm_rel = max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(fitted, want))
+    if not gmm_rel <= GMM_REL:
+        raise AssertionError(f"fit_gmm cuda vs cpu: rel err {gmm_rel}")
+    seconds = time.perf_counter() - t_phase
+    row.update(gmm_fit_rel_err=gmm_rel, gmm_fit_seconds=fit_s, phase_seconds=seconds)
+    log(f"[24] EvalHarness blur Exponential_reflect T={T} {IMG}px bf16, model_chunk "
+        f"{EVAL_CHUNK}: fid_distance_decrease_from_manifold {EVAL_IMAGES} images at "
+        f"batch_size {EVAL_BATCH} in {row['manifold_seconds']:.3f} s, "
+        f"{row['manifold_images_per_s']:.3f} images/s, peak memory "
+        f"{row['manifold_peak_bytes']} bytes ({row['manifold_peak_bytes'] / 2**30:.2f} GiB; "
+        f"{base} allocated before), front launches {row['manifold_launches']}, of them "
+        f"small-C {row['manifold_small_c_launches']}; samples == direct sample; card vs "
+        f"cpu: proxy FID rel err {worst['fid']:.3e} (<= {FID_RTOL}), rmse/ssim rel err "
+        f"{worst['metric']:.3e} (<= {METRIC_REL}); gmm_mean_samples num {EVAL_GMM_NUM} "
+        f"{gmm_s:.3f} s ({row['gmm_mean_launches']} front launches); Inception pool3 "
+        f"(synthetic weights) B={INCEPTION_CHECK_B} cuda vs cpu rel L2 {inc_rel:.3e} (<= "
+        f"{INCEPTION_REL_L2}), B={INCEPTION_TIME_B} {inc_ms:.3f} ms, "
+        f"{row['inception_us_per_image']:.1f} us/image, {flops.get_total_flops() / 1e9:.1f} "
+        f"GFLOP (FlopCounterMode) so a bound of {inc_bound_ms:.3f} ms at fp32 peak "
+        f"({100 * inc_bound_ms / inc_ms:.1f}%); fit_gmm (2000 x 16, K=4, 100 "
+        f"iterations) cuda vs cpu rel err {gmm_rel:.3e} (<= {GMM_REL}) in {fit_s:.3f} s; "
+        f"phase seconds {seconds:.2f}; card: {card}")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -1405,6 +1567,10 @@ def main() -> int:
     reset_peak(dev)
     late.append(multi_step_path(dev, card))
     log("[21-23] " + json.dumps(late))
+
+    # 24. the eval surface
+    reset_peak(dev)
+    log("[24] " + json.dumps(eval_path(dev, card)))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

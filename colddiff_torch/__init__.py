@@ -11,8 +11,9 @@ snow), both UNet families (``UnetConvNext``, ``UnetResNet``) and
 ``get_model``, ``ColdDiffusion`` (``q_sample`` and every training routine),
 the ``prepare_start`` / ``sample`` / ``all_sample`` / ``sample_multi_step``
 reverse samplers (Family A and Family B, models of every training routine),
-the single-device ``Trainer`` and the image metrics (``eval.ssim``,
-``rmse``, ``psnr``).  The ConvNeXt block front runs as CUDA kernels
+the single-device ``Trainer`` and the eval surface of ``colddiff.eval``
+(the image metrics, FID with its Inception pool3 graph and fallback
+extractor, the EM Gaussian mixture and the ``EvalHarness``).  The ConvNeXt block front runs as CUDA kernels
 (``colddiff_torch/csrc/convnext_front.cu``) on CUDA tensors and as plain
 PyTorch on CPU tensors; the Mosaic probes of ``scripts/bisect_mosaic.py``
 run as ``colddiff_torch/csrc/bisect_mosaic.cu``.  The ResNet family runs

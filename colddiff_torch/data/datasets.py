@@ -53,7 +53,8 @@ class ImageFolderDataset:
     def __init__(self, folder: str, image_size: int, aug: str = "aug1", seed: int = 0):
         if aug not in ("aug1", "center"):
             raise NotImplementedError(
-                f"aug '{aug}' is not ported to colddiff_torch yet (aug1, center are)")
+                f"aug '{aug}' is not ported to colddiff_torch yet (aug1, center are); "
+                "see ROADMAP.md section 1, item 6")
         self.paths = sorted(
             p for ext in _EXTS for p in Path(folder).glob(f"**/*.{ext}")
         )

@@ -38,8 +38,9 @@ def bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def table_device(device: torch.device | str, name: str) -> torch.device:
-    """The device an operator's ``create`` builds its tables on: the card
-    unless the caller asks for the CPU, and never the CPU unasked."""
+    """The device an operator's ``create`` builds its tables on (and the eval
+    entry points run on): the card unless the caller asks for the CPU, and
+    never the CPU unasked."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{name} on a CUDA device, but no CUDA device is "

@@ -4,15 +4,18 @@ Color conversions follow the reference's snowification/diffusion/utils.py
 (scikit-image D65 Lab port): images are NHWC in [-1, 1]; ``rgb2lab`` rescales
 to [0, 1] inside and ``lab2rgb`` returns [-1, 1], as the JAX copies do.  The
 3x3 color products are fp32 elementwise sums, so TF32 never touches them.
-``clipped_zoom`` is the snow set-up's host numpy/scipy zoom.
+``clipped_zoom`` is the snow set-up's host numpy/scipy zoom, and
+``resize_bilinear`` the eval code's ``jax.image.resize(..., "bilinear")``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb", "rgb_to_grayscale", "clipped_zoom"]
+__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb", "rgb_to_grayscale", "clipped_zoom",
+           "resize_bilinear"]
 
 _RGB2XYZ = np.array(
     [
@@ -57,6 +60,30 @@ def clipped_zoom(img: np.ndarray, zoom_factor: float) -> np.ndarray:
     img = scizoom(img[top : top + ch, top : top + ch], (zoom_factor, zoom_factor, 1), order=1)
     trim_top = (img.shape[0] - h) // 2
     return img[trim_top : trim_top + h, trim_top : trim_top + h]
+
+
+def resize_bilinear(x: torch.Tensor, size: int | tuple[int, int]) -> torch.Tensor:
+    """NHWC bilinear resize to ``size`` (H, W), equal to
+    ``jax.image.resize(x, (B, H, W, C), "bilinear")``.
+
+    JAX's resize is a ``scale_and_translate`` that widens its triangle
+    kernel by the shrink factor when it shrinks (it antialiases) and keeps
+    it when it grows.  ``F.interpolate`` matches the first with
+    ``antialias=True`` (~1e-7 from JAX; without it 0.6-1.0 off) and the
+    second with ``antialias=False`` (~2e-7; its antialiased path computes
+    upsampling weights in another order, up to 2.3e-6 off).  So the flag
+    follows whether the image shrinks.  An axis that shrinks while the
+    other grows would need one flag per axis: no caller does that, so it
+    raises."""
+    out_h, out_w = (size, size) if isinstance(size, int) else size
+    h, w = x.shape[1], x.shape[2]
+    shrink_h, shrink_w = out_h < h, out_w < w
+    if shrink_h != shrink_w and out_h != h and out_w != w:
+        raise ValueError(f"resize_bilinear from {h}x{w} to {out_h}x{out_w} shrinks one "
+                         "axis and grows the other")
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False, antialias=shrink_h or shrink_w)
+    return y.permute(0, 2, 3, 1)
 
 
 def _mat3(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:

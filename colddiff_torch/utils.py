@@ -1,10 +1,10 @@
-"""Small shared utilities: the EMA update, the bf16 parameter cast, cycling,
-image grids.
+"""Small shared utilities: the EMA update, the bf16 parameter cast, chunked
+model calls, cycling, image grids and GIFs.
 
 Port of ``colddiff/utils.py``.  ``cycle``, ``to_uint8_grid``,
-``save_image_grid`` and ``create_folder`` are numpy/PIL copies of the
-originals; ``ema_update`` and ``bf16_params`` work on torch tensors.
-``apply_in_chunks`` and ``save_gif`` are not ported yet.
+``save_image_grid``, ``add_title_bar``, ``save_gif`` and ``create_folder``
+are numpy/PIL copies of the originals; ``ema_update``, ``bf16_params`` and
+``apply_in_chunks`` work on torch tensors.
 """
 
 from __future__ import annotations
@@ -20,9 +20,12 @@ import torch
 __all__ = [
     "ema_update",
     "bf16_params",
+    "apply_in_chunks",
     "cycle",
     "to_uint8_grid",
     "save_image_grid",
+    "add_title_bar",
+    "save_gif",
     "create_folder",
 ]
 
@@ -50,6 +53,21 @@ def bf16_params(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, t
     input, not per-op autocast."""
     return {name: p.to(torch.bfloat16) for name, p in named_params
             if p.is_floating_point()}
+
+
+def apply_in_chunks(fn, chunk_size: int, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)`` over the batch in sequential chunks of ``chunk_size``.
+
+    The JAX package chunks big eval batches because XLA schedules the 128 px
+    UNet poorly above B=16 (colddiff/utils.py:64-92); a ``lax.map`` needs
+    equal chunks, so it zero-pads the last one.  Here the loop runs eagerly,
+    so the last chunk is simply the rest of the batch: the rows are
+    independent, and the output holds the batch's ``b`` rows."""
+    b = args[0].shape[0]
+    if b <= chunk_size:
+        return fn(*args)
+    return torch.cat([fn(*(a[lo:lo + chunk_size] for a in args))
+                      for lo in range(0, b, chunk_size)])
 
 
 def cycle(iterable: Iterable) -> Iterator:
@@ -91,6 +109,40 @@ def save_image_grid(images: np.ndarray, path: str | os.PathLike, nrow: int = 6) 
 
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray(to_uint8_grid(images, nrow)).save(path)
+
+
+def add_title_bar(frame: np.ndarray, titles: list[str]) -> np.ndarray:
+    """10px black border + 20px magenta title strip with evenly spaced texts
+    (reference Trainer.add_title, snowification/diffusion/diffusion.py:682-706)."""
+    from PIL import Image, ImageDraw
+
+    frame = np.pad(frame, ((10, 10), (10, 10), (0, 0)))
+    bar = np.zeros((20, frame.shape[1], 3), np.uint8)
+    bar[:] = (180, 0, 255)  # the reference's BGR (255, 0, 180), as RGB
+    img = Image.fromarray(np.concatenate([bar, frame], axis=0))
+    draw = ImageDraw.Draw(img)
+    n = max(len(titles), 1)
+    for i, title in enumerate(titles):
+        x = i * (frame.shape[1] // n) + frame.shape[1] // (2 * n)
+        draw.text((x, 4), str(title), fill=(0, 0, 0))
+    return np.asarray(img)
+
+
+def save_gif(frames: list[np.ndarray], path: str | os.PathLike, fps: int = 5,
+             titles: bool = False) -> None:
+    """Save a list of [B, H, W, C] batches in [-1, 1] as an animated grid GIF
+    (reference save_gif, snowification/diffusion/diffusion.py:764-807).
+    ``titles=True`` adds the reference's per-frame step-index title bar."""
+    from PIL import Image
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    grids = [to_uint8_grid(f) for f in frames]
+    if titles:
+        grids = [add_title_bar(g, [str(i)]) for i, g in enumerate(grids)]
+    pil = [Image.fromarray(g) for g in grids]
+    pil[0].save(
+        path, save_all=True, append_images=pil[1:], duration=int(1000 / fps), loop=0
+    )
 
 
 def create_folder(path: str | os.PathLike) -> None:

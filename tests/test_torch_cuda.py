@@ -400,3 +400,50 @@ def test_metrics_gpu_matches_cpu_and_refuse_tf32(cuda, monkeypatch):
             with pytest.raises(RuntimeError, match="fp32"):
                 fn(a.to(cuda), b.to(cuda))
         monkeypatch.undo()  # back to False, as the cuda fixture set it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [(128, 64), (100, 16), (32, 299), (16, 64)])
+def test_resize_gpu_matches_cpu(cuda, src, dst):
+    from colddiff_torch.ops.image import resize_bilinear
+
+    x = torch.rand(2, src, src, 3, generator=torch.Generator().manual_seed(src)) * 2 - 1
+    torch.testing.assert_close(resize_bilinear(x.to(cuda), dst).cpu(), resize_bilinear(x, dst),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fid_features_and_gmm_gpu_match_cpu(cuda, tmp_path, monkeypatch):
+    """The Inception pool3 graph on synthetic fp32 weights (rel L2 1e-3: ~96
+    conv layers summed in other orders), the fallback extractor (1e-5) and
+    fit_gmm from one init (1e-4 of each field's max) on the card vs the
+    CPU; each refuses TF32 on the card."""
+    import numpy as np
+
+    from colddiff_torch.eval import fid, gmm
+
+    path = tmp_path / "synth.pth"
+    torch.save({k: torch.as_tensor(v)
+                for k, v in fid.synth_state_dict(dtype=np.float32).items()}, path)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(4, 64, 64, 3, generator=gen) * 2 - 1
+    for make, rel in ((lambda dev: fid.inception_features_from_torch_checkpoint(path, dev),
+                       1e-3), (lambda dev: fid.fid_features_fn(device=dev), 1e-5)):
+        want, got = make("cpu")(x), make(cuda)(x).cpu()
+        assert ((got.double() - want.double()).norm() / want.double().norm()).item() <= rel
+    centers = torch.rand(3, 8, generator=gen) * 6 - 3
+    pts = centers.repeat_interleave(200, 0) + 0.2 * torch.randn(600, 8, generator=gen)
+    init = torch.tensor([0, 250, 450])
+    want = gmm.fit_gmm(pts, 3, init_idx=init)
+    got = gmm.fit_gmm(pts.to(cuda), 3, init_idx=init.to(cuda))
+    for g, w in zip(got, want):
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
+    draws = gmm.sample_gmm(got, torch.Generator(device=cuda).manual_seed(1), 16)
+    assert draws.shape == (16, 8) and draws.is_cuda and torch.isfinite(draws).all()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="fp32"):
+        fid.fid_features_fn(device=cuda)(x)
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="fp32"):
+        gmm.fit_gmm(pts.to(cuda), 3, init_idx=init.to(cuda))

@@ -52,7 +52,9 @@ def test_every_submodule_imports_without_building():
             "colddiff_torch.operators.resolution", "colddiff_torch.ops.image",
             "colddiff_torch.operators.noise", "colddiff_torch.operators.snow",
             "colddiff_torch.operators.fade_naive", "colddiff_torch.models.unet_resnet",
-            "colddiff_torch.models.get_model", "colddiff_torch.eval.metrics"} <= set(names)
+            "colddiff_torch.models.get_model", "colddiff_torch.eval.metrics",
+            "colddiff_torch.eval.fid", "colddiff_torch.eval.gmm",
+            "colddiff_torch.eval.harness"} <= set(names)
     for name in names:
         importlib.import_module(name)
     assert _build.load_library.cache_info().currsize == 0  # no nvcc, no dlopen

@@ -112,6 +112,23 @@ checks it, in phases:
      ``synth_state_dict`` weights on the card vs the CPU at B=8 and its
      card time per image at B=64; ``fit_gmm`` on the card vs the CPU from
      one init.
+ 25. the command line on the flagship path, over 64 seeded 160x160 PNGs
+     read by the CLI's ``folder`` dataset: ``python -m
+     colddiff_torch.cli.main train`` (blur Exponential_reflect T=200 kernel
+     15 std 0.01, 128 px, dim 64, B=16 x accum 2, bf16) as a subprocess,
+     20 steps under its restart supervisor with ``--restart_every_steps
+     10`` (exactly one respawn; ``model.pt`` at step 20 and its four
+     sample grids); then, in this process, ``main(["test", ...,
+     "--test_type", "test_fid_distance_decrease_from_manifold",
+     "--test_end", "32"])`` from that checkpoint, with its front launches
+     checked (17 a forward, T=200 a batch of 16) and ``refresh_every`` 1
+     stamped; one flagship ``Trainer`` step with ``remat`` and one
+     without, from one state and one batch and t (equal losses, equal
+     updates within the bf16 train-step tolerance, the recompute's second
+     forward counted in the launches, the peak memory of each); one CLI
+     ``train`` step of ``decolor --to_lab`` with its snapshot, and
+     ``rgb2lab``/``lab2rgb`` on the card vs the CPU; a ``Trainer``
+     profiler window (steps 1-3) whose trace names the tile kernel.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -135,11 +152,13 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -152,13 +171,14 @@ from colddiff_torch.eval import EvalHarness, fit_gmm, metrics
 from colddiff_torch.eval import fid as fid_mod
 from colddiff_torch.models import UnetConvNext, get_model
 from colddiff_torch.models.convert import load_reference_checkpoint
+from colddiff_torch.cli import main as cli_main
 from colddiff_torch.models.layers import ChannelLayerNorm, ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
 from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, cluster_config,
                                               convnext_front, convnext_front_plain)
-from colddiff_torch.ops.image import rgb2lab
+from colddiff_torch.ops.image import lab2rgb, rgb2lab
 from colddiff_torch.sampling import all_sample, prepare_start, sample, sample_multi_step
 from colddiff_torch.scripts import bisect_mosaic as probe_script
 from colddiff_torch.train import Trainer
@@ -197,6 +217,14 @@ GMM_REL = 1e-4  # fit_gmm's fields on the card vs the CPU, relative to each fiel
 METRIC_REL = 1e-5  # ssim / rmse / psnr on the card vs the CPU
 DEGRADE_REL = 1e-5  # an operator's degrade on the card vs the CPU, relative to max |y|
 TRAJ_STRIDE = 10
+CLI_IMAGES, CLI_SIDE = 64, 160  # phase 25: the PNGs of the CLI's folder dataset
+CLI_STEPS, CLI_RESTART = 20, 10  # supervised train steps, a worker's steps
+CLI_TEST_END = 32  # the manifold test's images, in batches of BATCH
+CLI_LAB_T = 20  # the to_lab decolor step (phase 13's T)
+PROFILE_STEPS = (1, 3)
+REMAT_UPDATE_REL_L2 = 2e-2  # the bf16 train-step tolerance of the port's tests
+LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
+REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
 PLAIN_RUN = 20  # calls per run of a plain version (~12 launches each)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -1284,6 +1312,228 @@ def eval_path(device, card: str):
     return row
 
 
+def write_pngs(folder: Path, n: int, side: int, seed: int) -> None:
+    """``n`` seeded ``side`` x ``side`` RGB PNGs: smooth fields with noise."""
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    for i in range(n):
+        f = rng.random((3, 3))
+        img = (np.sin(2 * np.pi * (f[:, 0, None, None] * xx + f[:, 1, None, None] * yy
+                                   + f[:, 2, None, None])) * 0.4 + 0.5
+               + 0.1 * rng.standard_normal((3, side, side)))
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(
+            folder / f"{i:03d}.png")
+
+
+def remat_pair(device, folder: str):
+    """One flagship Trainer step without and with ``remat`` from one state
+    (seeded weights), one batch and one t.  Returns per run (loss, update
+    of each parameter, front launches, small-C launches, peak bytes above
+    the state's)."""
+    d = blur_diffusion(IMG, T, device)
+    ds = SyntheticDataset(IMG, 3, length=64, seed=SEED + 25)
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    t = torch.randint(0, T, (ACCUM, BATCH), generator=gen, device=device)
+    runs = []
+    for remat in (False, True):
+        tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), ds, train_batch_size=BATCH,
+                     gradient_accumulate_every=ACCUM, results_folder=f"{folder}/{remat}",
+                     bf16=True, num_workers=4, seed=SEED, remat=remat, device=device)
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        batch = tr._next_superbatch()
+        base = reset_peak(device)
+        zero_launches()
+        loss = tr.train_step(batch, t=t)
+        torch.cuda.synchronize(device)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        update = [p.detach() - b for p, b in zip(tr.model.parameters(), before)]
+        runs.append((loss.item(), update, launches[0], launches[1], peak))
+        del tr, before, batch
+    return runs
+
+
+def cli_path(device, card: str):
+    """Phase 25: the CLI on the flagship path.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    row = dict(phase="25")
+    torch.cuda.empty_cache()  # the train workers are processes of their own
+    with tempfile.TemporaryDirectory() as tmp:
+        data, results = Path(tmp) / "png", Path(tmp) / "results"
+        write_pngs(data, CLI_IMAGES, CLI_SIDE, SEED + 25)
+        flags = ["--dataset", "folder", "--data_path", str(data), "--image_size", str(IMG),
+                 "--time_steps", str(T), "--blur_routine", "Exponential_reflect",
+                 "--blur_size", "15", "--blur_std", "0.01", "--dim", "64",
+                 "--batch_size", str(BATCH), "--bf16", "--save_folder", str(results)]
+
+        # 1. train through the entry point, under the restart supervisor
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        env.pop("COLDDIFF_RESTART_WORKER", None)
+        cmd = [sys.executable, "-m", "colddiff_torch.cli.main", "train", *flags,
+               "--grad_accum", str(ACCUM), "--train_steps", str(CLI_STEPS),
+               "--save_and_sample_every", str(CLI_STEPS),
+               "--restart_every_steps", str(CLI_RESTART)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                           timeout=900)
+        train_s = time.perf_counter() - t0
+        respawns = r.stdout.count("hit restart boundary; respawning")
+        if r.returncode != 0 or respawns != CLI_STEPS // CLI_RESTART - 1:
+            raise AssertionError(f"CLI train: exit {r.returncode}, {respawns} respawns; "
+                                 f"stdout {r.stdout[-2000:]}\nstderr {r.stderr[-4000:]}")
+        blob = torch.load(results / "model.pt", map_location="cpu")
+        if blob["step"] != CLI_STEPS or not all(torch.isfinite(v).all()
+                                                for v in blob["model"].values()):
+            raise AssertionError(f"CLI train: checkpoint at step {blob['step']}, "
+                                 f"expected {CLI_STEPS}, or not finite")
+        for name in ("og", "xt", "direct_recons", "sample"):
+            if not (results / f"{name}-1.png").is_file():
+                raise AssertionError(f"CLI train wrote no {name}-1.png at step {CLI_STEPS}")
+        # a worker's fixed cost: the same command for 0 steps, no supervisor
+        # (interpreter, imports, CUDA set-up, the model's build, one checkpoint)
+        t0 = time.perf_counter()
+        r0 = subprocess.run([*cmd[:-2], "--train_steps", "0", "--save_folder",
+                             str(Path(tmp) / "zero")], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=300)
+        zero_s = time.perf_counter() - t0
+        if r0.returncode != 0:
+            raise AssertionError(f"CLI train --train_steps 0: exit {r0.returncode}; "
+                                 f"stderr {r0.stderr[-4000:]}")
+        images = CLI_STEPS * ACCUM * BATCH
+        row.update(train_seconds=train_s, train_workers=respawns + 1,
+                   train_wall_images_per_s=images / train_s, zero_step_worker_seconds=zero_s)
+        log(f"[25] CLI train (subprocess, supervisor + {respawns + 1} workers, "
+            f"--restart_every_steps {CLI_RESTART}) {CLI_STEPS} steps B={BATCH} x accum "
+            f"{ACCUM} {IMG}px bf16 with the step-{CLI_STEPS} checkpoint and T={T} snapshot: "
+            f"{train_s:.3f} s wall, {images / train_s:.3f} train images/s over the wall "
+            f"(process starts, kernel library loads and the snapshot included); one "
+            f"worker of 0 steps (start-up and a checkpoint) {zero_s:.3f} s; card: {card}")
+
+        # 2. test in this process, from the checkpoint; the harness call
+        # timed apart from the CLI's loading around it
+        harness_s = []
+        manifold = EvalHarness.fid_distance_decrease_from_manifold
+
+        def timed_manifold(self, *a, **kw):
+            t1 = time.perf_counter()
+            out = manifold(self, *a, **kw)
+            harness_s.append(time.perf_counter() - t1)
+            return out
+
+        base = reset_peak(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        EvalHarness.fid_distance_decrease_from_manifold = timed_manifold
+        try:
+            cli_main.main(["test", *flags, "--test_type",
+                           "test_fid_distance_decrease_from_manifold", "--test_end",
+                           str(CLI_TEST_END), "--load_path", str(results / "model.pt")])
+        finally:
+            EvalHarness.fid_distance_decrease_from_manifold = manifold
+        torch.cuda.synchronize(device)
+        test_s = time.perf_counter() - t0
+        launches = launch_counts()
+        forwards = T * (CLI_TEST_END // BATCH)  # model_chunk 16: one forward a step
+        if launches != (17 * forwards, forwards, 0):
+            raise AssertionError(f"CLI test launched {launches} (all, small-C, wide-C) "
+                                 f"fronts; expected {(17 * forwards, forwards, 0)}")
+        scores = json.loads((results / "manifold_metrics.json").read_text())
+        if not (scores["refresh_every"] == 1 and scores["bf16"] is True
+                and all(math.isfinite(v) for v in scores.values() if isinstance(v, float))):
+            raise AssertionError(f"CLI test metrics: {scores}")
+        peak = torch.cuda.max_memory_allocated(device)
+        row.update(test_seconds=test_s, test_images_per_s=CLI_TEST_END / test_s,
+                   test_harness_seconds=harness_s[0], test_peak_bytes=peak,
+                   test_base_bytes=base, test_launches=launches[0],
+                   test_small_c_launches=launches[1], scores=scores)
+        log(f"[25] CLI test test_fid_distance_decrease_from_manifold --test_end "
+            f"{CLI_TEST_END} (in process; Trainer load + harness build included): "
+            f"{test_s:.3f} s, {CLI_TEST_END / test_s:.3f} images/s, of it the harness "
+            f"call {harness_s[0]:.3f} s ({CLI_TEST_END / harness_s[0]:.3f} images/s); "
+            f"peak memory {peak} "
+            f"bytes ({peak / 2**30:.2f} GiB; {base} allocated before), front launches "
+            f"{launches[0]}, of them small-C {launches[1]}; refresh_every "
+            f"{scores['refresh_every']}; card: {card}")
+
+        # 3. remat against the step without it
+        (loss0, up0, l0, s0, peak0), (loss1, up1, l1, s1, peak1) = remat_pair(
+            device, f"{tmp}/remat")
+        bitwise = all(torch.equal(a, b) for a, b in zip(up0, up1))
+        num = math.sqrt(sum((a.double() - b.double()).square().sum().item()
+                            for a, b in zip(up0, up1)))
+        den = math.sqrt(sum(a.double().square().sum().item() for a in up0))
+        if not (loss0 == loss1 and num <= REMAT_UPDATE_REL_L2 * den
+                and (l0, s0) == (17 * ACCUM, ACCUM) and (l1, s1) == (2 * l0, 2 * s0)):
+            raise AssertionError(f"remat: losses {loss0} {loss1}, update rel L2 {num / den}, "
+                                 f"launches {(l0, s0)} and {(l1, s1)}")
+        row.update(remat_loss=loss1, remat_update_rel_l2=num / den, remat_bitwise=bitwise,
+                   plain_peak_bytes=peak0, remat_peak_bytes=peak1,
+                   plain_launches=l0, remat_launches=l1)
+        log(f"[25] remat: one flagship step B={BATCH} x accum {ACCUM} bf16, losses equal "
+            f"({loss1}), updates rel L2 {num / den:.3e} (<= {REMAT_UPDATE_REL_L2}; bitwise "
+            f"{bitwise}); peak memory above the state {peak1} bytes ({peak1 / 2**30:.2f} "
+            f"GiB) with remat vs {peak0} ({peak0 / 2**30:.2f} GiB) without; front launches "
+            f"{l1} (small-C {s1}) vs {l0} (small-C {s0}); card: {card}")
+        del up0, up1
+
+        # 4. to_lab: one CLI train step of decolor in Lab, and the conversions
+        lab_dir = Path(tmp) / "lab"
+        t0 = time.perf_counter()
+        cli_main.main(["train", "--degradation", "decolor", "--decolor_routine", "Linear",
+                       "--decolor_total_remove", "--to_lab", "--dataset", "folder",
+                       "--data_path", str(data), "--image_size", str(IMG),
+                       "--time_steps", str(CLI_LAB_T), "--dim", "64",
+                       "--batch_size", str(BATCH), "--bf16", "--train_steps", "1",
+                       "--save_and_sample_every", "1", "--save_folder", str(lab_dir)])
+        lab_s = time.perf_counter() - t0
+        blob = torch.load(lab_dir / "model.pt", map_location="cpu")
+        if blob["step"] != 1 or not (lab_dir / "sample-1.png").is_file():
+            raise AssertionError("CLI to_lab train: no step-1 checkpoint or sample grid")
+        x = torch.rand(BATCH, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 26))
+        x = x * 2 - 1
+        lab_cpu = rgb2lab(x)
+        lab_err = ((rgb2lab(x.to(device)).cpu() - lab_cpu).abs().max()
+                   / lab_cpu.abs().max()).item()
+        back_cpu = lab2rgb(lab_cpu)
+        back_err = ((lab2rgb(lab_cpu.to(device)).cpu() - back_cpu).abs().max()
+                    / back_cpu.abs().max()).item()
+        if not (lab_err <= LAB_REL and back_err <= LAB_REL):
+            raise AssertionError(f"rgb2lab / lab2rgb cuda vs cpu: rel err {lab_err}, "
+                                 f"{back_err}")
+        row.update(to_lab_seconds=lab_s, rgb2lab_rel_err=lab_err, lab2rgb_rel_err=back_err)
+        log(f"[25] CLI train decolor Linear --to_lab T={CLI_LAB_T} {IMG}px, 1 step with "
+            f"its snapshot (in process): {lab_s:.3f} s; rgb2lab cuda vs cpu rel err "
+            f"{lab_err:.3e}, lab2rgb {back_err:.3e} (<= {LAB_REL}); card: {card}")
+
+        # 5. the profiler window of the Trainer
+        prof_dir = Path(tmp) / "prof"
+        reset_peak(device)
+        tr = Trainer(blur_diffusion(IMG, T, device), seeded_unet(SEED, device, **FLAGSHIP),
+                     SyntheticDataset(IMG, 3, length=64), train_batch_size=BATCH,
+                     gradient_accumulate_every=ACCUM, train_num_steps=PROFILE_STEPS[1],
+                     save_and_sample_every=10**9, results_folder=f"{tmp}/p25", bf16=True,
+                     num_workers=4, seed=SEED, profile_dir=str(prof_dir),
+                     profile_steps=PROFILE_STEPS, device=device)
+        tr.train(log_every=1)
+        del tr
+        traces = sorted(prof_dir.glob("*.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+        tile_events = text.count("convnext_front_tile_kernel")
+        if not tile_events:
+            raise AssertionError(f"profiler: traces {traces} name no convnext_front_tile_kernel")
+        row.update(trace_bytes=len(text), trace_tile_kernel_mentions=tile_events)
+        log(f"[25] profiler steps {PROFILE_STEPS}: {traces[0].name} {len(text)} bytes, "
+            f"convnext_front_tile_kernel named {tile_events} times")
+    seconds = time.perf_counter() - t_phase
+    row.update(phase_seconds=seconds)
+    log(f"[25] phase seconds {seconds:.2f}; card: {card}")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -1571,6 +1821,10 @@ def main() -> int:
     # 24. the eval surface
     reset_peak(dev)
     log("[24] " + json.dumps(eval_path(dev, card)))
+
+    # 25. the command line
+    reset_peak(dev)
+    log("[25] " + json.dumps(cli_path(dev, card)))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

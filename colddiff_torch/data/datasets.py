@@ -7,19 +7,24 @@ reference datasets:
                 (Dataset_Aug1, deblurring_diffusion_pytorch.py:983-1004)
   - ``center``: Resize(1.12*S) -> CenterCrop(S)
                 (Dataset, deblurring_diffusion_pytorch.py:1006-1026)
-  - ``cifar`` (``ArrayDataset``): pad 4 + RandomCrop(S) + RandomHFlip
+  - ``center_pad``: CenterCrop(S) only (snowification diffusion.py:493-520)
+  - ``random_aug``: RandomResizedCrop(S) + RandomHFlip + ColorJitter
+                (snowification diffusion.py:505-516)
+  - ``cifar``:  pad 4 + RandomCrop(S) + RandomHFlip
                 (Dataset_Cifar10, snowification diffusion.py:539-552)
-Images are NHWC float32 in [-1, 1].
+Images are NHWC float32 in [-1, 1].  Every random draw comes from the
+dataset's own ``np.random.default_rng(seed)``, in the JAX order.
 
 The crops and the uint8 -> [-1, 1] scaling are the JAX package's numpy
 path, ``v / 255 * 2 - 1``.  (Its optional native helper computes
-``v * (2 / 255) - 1``, which can differ in the last bit.)  The
-``center_pad`` and ``random_aug`` transforms and the MNIST/CIFAR parsers
-are not ported yet.
+``v * (2 / 255) - 1``, which can differ in the last bit.)  Raw MNIST (idx)
+and CIFAR-10 (pickle batches) parsers read the standard downloads.
 """
 
 from __future__ import annotations
 
+import gzip
+import pickle
 from pathlib import Path
 from typing import Optional
 
@@ -29,6 +34,8 @@ __all__ = [
     "ImageFolderDataset",
     "ArrayDataset",
     "SyntheticDataset",
+    "load_mnist_idx",
+    "load_cifar10_batches",
     "DataLoader",
 ]
 
@@ -51,10 +58,6 @@ class ImageFolderDataset:
     """Recursive image-folder dataset with reference-parity augmentation."""
 
     def __init__(self, folder: str, image_size: int, aug: str = "aug1", seed: int = 0):
-        if aug not in ("aug1", "center"):
-            raise NotImplementedError(
-                f"aug '{aug}' is not ported to colddiff_torch yet (aug1, center are); "
-                "see ROADMAP.md section 1, item 6")
         self.paths = sorted(
             p for ext in _EXTS for p in Path(folder).glob(f"**/*.{ext}")
         )
@@ -80,19 +83,62 @@ class ImageFolderDataset:
 
         s = self.image_size
         rng = self._rng
-        big = int(s * 1.12)
-        img = img.resize((big, big), Image.BILINEAR)
-        if self.aug == "aug1":
-            x0 = int(rng.integers(0, big - s + 1))
-            y0 = int(rng.integers(0, big - s + 1))
-            flip = rng.random() < 0.5
+        if self.aug in ("aug1", "center"):
+            big = int(s * 1.12)
+            img = img.resize((big, big), Image.BILINEAR)
+            if self.aug == "aug1":
+                x0 = int(rng.integers(0, big - s + 1))
+                y0 = int(rng.integers(0, big - s + 1))
+                flip = rng.random() < 0.5
+            else:
+                x0 = y0 = (big - s) // 2
+                flip = False
+            arr = np.asarray(img)
+            if arr.ndim == 2:
+                arr = arr[..., None]
+            return _crop_flip_normalize(arr, y0, x0, s, flip)
+        elif self.aug == "center_pad":
+            w, h = img.size
+            x0, y0 = (w - s) // 2, (h - s) // 2
+            img = img.crop((x0, y0, x0 + s, y0 + s))
+        elif self.aug == "random_aug":
+            # SimCLR-style RandomResizedCrop + ColorJitter
+            # (snowification diffusion.py:505-516)
+            w, h = img.size
+            for _ in range(10):
+                area = rng.uniform(0.08, 1.0) * w * h
+                ratio = np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3)))
+                cw = int(round(np.sqrt(area * ratio)))
+                ch = int(round(np.sqrt(area / ratio)))
+                if cw <= w and ch <= h:
+                    x0 = int(rng.integers(0, w - cw + 1))
+                    y0 = int(rng.integers(0, h - ch + 1))
+                    img = img.crop((x0, y0, x0 + cw, y0 + ch))
+                    break
+            img = img.resize((s, s), Image.BICUBIC)
+            if rng.random() < 0.5:
+                img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            if rng.random() < 0.8:
+                from PIL import ImageEnhance
+
+                for enh in (ImageEnhance.Brightness, ImageEnhance.Contrast,
+                            ImageEnhance.Color):
+                    img = enh(img).enhance(1.0 + rng.uniform(-0.4, 0.4))
+        elif self.aug == "cifar":
+            arr = np.asarray(img)
+            arr = np.pad(arr, ((4, 4), (4, 4)) + ((0, 0),) * (arr.ndim - 2), mode="constant")
+            x0 = int(rng.integers(0, 9))
+            y0 = int(rng.integers(0, 9))
+            arr = arr[y0 : y0 + s, x0 : x0 + s]
+            if rng.random() < 0.5:
+                arr = arr[:, ::-1]
+            img = Image.fromarray(arr)
         else:
-            x0 = y0 = (big - s) // 2
-            flip = False
+            raise ValueError(f"unknown aug: {self.aug}")
         arr = np.asarray(img)
         if arr.ndim == 2:
             arr = arr[..., None]
-        return _crop_flip_normalize(arr, y0, x0, s, flip)
+        return _to_tensor_range(arr)
 
 
 class ArrayDataset:
@@ -153,6 +199,38 @@ class SyntheticDataset:
         return img * 2.0 - 1.0
 
 
+def load_mnist_idx(root: str, train: bool = True) -> np.ndarray:
+    """Parse raw MNIST idx(.gz) files -> [N, 28, 28, 1] uint8."""
+    name = "train-images-idx3-ubyte" if train else "t10k-images-idx3-ubyte"
+    root_p = Path(root)
+    for cand in (root_p / name, root_p / (name + ".gz"),
+                 root_p / "MNIST" / "raw" / name, root_p / "MNIST" / "raw" / (name + ".gz")):
+        if cand.exists():
+            opener = gzip.open if cand.suffix == ".gz" else open
+            with opener(cand, "rb") as f:
+                data = f.read()
+            n = int.from_bytes(data[4:8], "big")
+            return np.frombuffer(data, dtype=np.uint8, offset=16).reshape(n, 28, 28, 1)
+    raise FileNotFoundError(f"MNIST idx files not found under {root}")
+
+
+def load_cifar10_batches(root: str, train: bool = True) -> np.ndarray:
+    """Parse CIFAR-10 python pickle batches -> [N, 32, 32, 3] uint8."""
+    base = Path(root)
+    for sub in ("cifar-10-batches-py", "."):
+        d = base / sub
+        names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+        if all((d / n).exists() for n in names):
+            parts = []
+            for n in names:
+                with open(d / n, "rb") as f:
+                    batch = pickle.load(f, encoding="bytes")
+                parts.append(batch[b"data"])
+            data = np.concatenate(parts).reshape(-1, 3, 32, 32)
+            return np.transpose(data, (0, 2, 3, 1)).copy()
+    raise FileNotFoundError(f"CIFAR-10 batches not found under {root}")
+
+
 class DataLoader:
     """Background-thread prefetching loader yielding NHWC float32 batches.
 
@@ -160,6 +238,10 @@ class DataLoader:
     (deblurring_diffusion_pytorch.py:1115): worker threads decode/augment with
     PIL (which releases the GIL) while the GPU runs the previous step.  The
     batches are numpy arrays; the Trainer pins and copies them.
+
+    ``skip`` passes over that many batches of the stream, without loading
+    them, before the first one it yields: a loader with the seed of a run
+    and ``skip = n`` continues that run's stream after its n-th batch.
     """
 
     def __init__(
@@ -173,6 +255,7 @@ class DataLoader:
         prefetch: int = 4,
         process_index: int = 0,
         process_count: int = 1,
+        skip: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -184,6 +267,7 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self._epoch_rng = np.random.default_rng(seed)
+        self._skip = skip
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.process_count
@@ -202,6 +286,10 @@ class DataLoader:
         from concurrent.futures import ThreadPoolExecutor
 
         batches = self._batches()
+        while self._skip and batches:
+            n = min(self._skip, len(batches))
+            self._skip -= n
+            batches = batches[n:] or self._batches()
         if not batches:
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

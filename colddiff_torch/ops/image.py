@@ -1,9 +1,10 @@
-"""Image-space utilities (port of the parts of ``colddiff/ops/image.py`` in use).
+"""Image-space utilities, the port of ``colddiff/ops/image.py``.
 
 Color conversions follow the reference's snowification/diffusion/utils.py
 (scikit-image D65 Lab port): images are NHWC in [-1, 1]; ``rgb2lab`` rescales
 to [0, 1] inside and ``lab2rgb`` returns [-1, 1], as the JAX copies do.  The
 3x3 color products are fp32 elementwise sums, so TF32 never touches them.
+``rgb2hsv``/``hsv2rgb`` take and give NHWC RGB in [0, 1] (kornia semantics).
 ``clipped_zoom`` is the snow set-up's host numpy/scipy zoom, and
 ``resize_bilinear`` the eval code's ``jax.image.resize(..., "bilinear")``.
 """
@@ -14,8 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb", "rgb_to_grayscale", "clipped_zoom",
-           "resize_bilinear"]
+__all__ = ["quantize_uint8", "rgb2lab", "lab2rgb", "rgb2hsv", "hsv2rgb", "rgb_to_grayscale",
+           "clipped_zoom", "resize_bilinear"]
 
 _RGB2XYZ = np.array(
     [
@@ -137,3 +138,47 @@ def lab2rgb(x: torch.Tensor, clip: bool = True) -> torch.Tensor:
     if clip:
         rgb = torch.clamp(rgb, 0.0, 1.0)
     return 2.0 * rgb - 1.0
+
+
+def rgb2hsv(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """NHWC RGB in [0, 1] -> HSV (H in radians [0, 2pi), S, V in [0, 1]).
+
+    Differentiable; snowification/diffusion/utils.py:9-55 (kornia semantics).
+    """
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    maxc = x.amax(dim=-1)
+    minc = x.amin(dim=-1)
+    v = maxc
+    deltac = maxc - minc
+    s = deltac / (v + eps)
+    dc = torch.where(deltac == 0, torch.ones_like(deltac), deltac)
+    rc = (maxc - r) / dc
+    gc = (maxc - g) / dc
+    bc = (maxc - b) / dc
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(deltac == 0, torch.zeros_like(h), h)
+    h = (h / 6.0) % 1.0 * (2.0 * np.pi)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv2rgb(x: torch.Tensor) -> torch.Tensor:
+    """HSV (H in radians) -> NHWC RGB in [0, 1]
+    (snowification/diffusion/utils.py:58-103)."""
+    h = x[..., 0] / (2.0 * np.pi)
+    s, v = x[..., 1], x[..., 2]
+    hi = (torch.floor(h * 6.0) % 6.0).long()
+    f = h * 6.0 - torch.floor(h * 6.0)
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    options = torch.stack([
+        torch.stack([v, t, p], dim=-1),
+        torch.stack([q, v, p], dim=-1),
+        torch.stack([p, v, t], dim=-1),
+        torch.stack([p, q, v], dim=-1),
+        torch.stack([t, p, v], dim=-1),
+        torch.stack([v, p, q], dim=-1),
+    ], dim=-2)  # [..., 6, 3]
+    idx = hi[..., None, None].expand(*hi.shape, 1, 3)
+    return options.gather(-2, idx).squeeze(-2)

@@ -36,16 +36,39 @@ dropout_generator, op}`` (``results_folder/model.pt``); ``model`` and
 operator's tensors (a random snow field), as the JAX checkpoint holds the
 operator.
 
+Switches, as in the JAX Trainer:
+  - ``remat``: the denoiser call of each training loss runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``), so its
+    activations are recomputed in the backward pass.  The dropout
+    generator's replay sits inside the checkpointed call, so the recompute
+    draws the masks of the forward.  The recompute runs every layer again,
+    the block-front kernels too: a training call launches each front twice;
+  - ``to_lab``: batches go to Lab (``rgb2lab``) before the loss, and the
+    sample grids back through ``lab2rgb`` (snowification diffusion.py:
+    613-625);
+  - ``profile_dir``/``profile_steps``: a ``torch.profiler`` trace of the
+    steps from ``profile_steps[0]`` to ``profile_steps[1]``, written as a
+    Chrome trace under ``profile_dir`` (JAX's ``jax.profiler`` window);
+  - ``debug_nans``: a non-finite batch or microbatch loss raises
+    ``FloatingPointError`` (JAX's ``jax_debug_nans``).  The check waits for
+    the card, so it runs only with the switch on;
+  - ``restart_every_steps``/``restart_rss_gb``: ``train()`` checkpoints and
+    returns "restart" every N steps, or when the host RSS passes the limit
+    (the CLI's supervisor respawns a worker that resumes).  A resumed
+    Trainer also continues its loaders' streams from the checkpoint's step,
+    so a run cut into workers takes the batches of an unbroken one (the JAX
+    Trainer starts its loaders anew).
+
 Not ported yet: multi-process training and parameter sharding (ROADMAP.md
-section 1, item 12), the restart supervisor (item 13), and ``remat``,
-``to_lab``, ``profile_dir`` and ``debug_nans`` (item 6).  Passing any of
-them raises ``NotImplementedError``.
+section 1, item 12).  Passing ``param_sharding``, ``fsdp_min_size`` or
+``mesh`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -54,29 +77,20 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .data.datasets import DataLoader
 from .diffusion import ColdDiffusion
 from .models.convert import load_reference_checkpoint
+from .ops.image import lab2rgb, rgb2lab
 from .ops.linop import require_ieee_fp32
 from .sampling import prepare_start, sample
 from .utils import bf16_params, create_folder, cycle, ema_update, save_image_grid
 
 __all__ = ["Trainer"]
 
-# JAX Trainer arguments not ported yet -> the ROADMAP.md item that ports them
-_UNPORTED = {
-    "param_sharding": "section 1, item 12 (parallelism)",
-    "fsdp_min_size": "section 1, item 12 (parallelism)",
-    "mesh": "section 1, item 12 (parallelism)",
-    "restart_every_steps": "section 1, item 13 (restart supervisor)",
-    "restart_rss_gb": "section 1, item 13 (restart supervisor)",
-    "remat": "section 1, item 6 (Trainer)",
-    "to_lab": "section 1, item 6 (Trainer)",
-    "profile_dir": "section 1, item 6 (Trainer)",
-    "profile_steps": "section 1, item 6 (Trainer)",
-    "debug_nans": "section 1, item 6 (Trainer)",
-}
+# JAX Trainer arguments not ported yet: ROADMAP.md section 1, item 12
+_UNPORTED = ("param_sharding", "fsdp_min_size", "mesh")
 
 
 class Trainer:
@@ -103,6 +117,13 @@ class Trainer:
         bf16: bool = False,
         num_workers: int = 4,
         seed: int = 0,
+        profile_dir: Optional[str] = None,
+        profile_steps: tuple = (10, 20),
+        debug_nans: bool = False,
+        remat: bool = False,
+        restart_every_steps: int = 0,
+        restart_rss_gb: float = 0.0,
+        to_lab: bool = False,
         device: torch.device | str = "cuda",
         **unported,
     ):
@@ -111,7 +132,7 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected keyword argument '{name}'")
             raise NotImplementedError(
                 f"Trainer argument '{name}' is not ported to colddiff_torch yet; "
-                f"see ROADMAP.md {_UNPORTED[name]}")
+                "see ROADMAP.md section 1, item 12 (parallelism)")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -138,23 +159,32 @@ class Trainer:
         create_folder(self.results_folder)
         self.metrics_path = self.results_folder / "metrics.jsonl"
         self.bf16 = bf16
+        self.remat = remat
+        self.to_lab = to_lab
+        self.debug_nans = debug_nans
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
+        self.restart_every_steps = restart_every_steps
+        self.restart_rss_gb = restart_rss_gb
+        if restart_rss_gb:
+            base = self._host_rss_gb()
+            if base and restart_rss_gb <= base + 1.0:
+                print(f"WARNING: --restart_rss_gb {restart_rss_gb} is at or "
+                      f"below the process baseline RSS ({base:.1f} GB); "
+                      "every step would trigger a respawn -- raise the "
+                      "threshold well above baseline", flush=True)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=train_lr,
                                     betas=(0.9, 0.999), eps=1e-8)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(
             (1009 << 32) + seed)
-        self.dl = cycle(DataLoader(dataset, train_batch_size,
-                                   num_workers=num_workers, seed=seed))
-        self.dl2 = (cycle(DataLoader(second_dataset, train_batch_size,
-                                     num_workers=num_workers, seed=seed + 1))
-                    if second_dataset is not None else None)
+        self._dataset, self._dataset2 = dataset, second_dataset
+        self._num_workers, self._seed = num_workers, seed
+        self._start_loaders(0)
         # snapshot() draws its grid images (and endpoints) from loaders of
         # its own, so the training stream is the same whether or not
         # snapshots run
-        self._snap_dataset = dataset
-        self._snap_dataset2 = second_dataset
-        self._snap_workers = num_workers
-        self._snap_seed = seed
         self._snap_dl = self._snap_dl2 = None
         self._snap_bs = 0
         self.step = 0
@@ -177,12 +207,25 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
 
+    def _start_loaders(self, skip: int) -> None:
+        """The training loaders (and ``second_dataset``'s), continuing their
+        seeded streams after ``skip`` batches."""
+        self.dl = cycle(DataLoader(self._dataset, self.batch_size,
+                                   num_workers=self._num_workers, seed=self._seed, skip=skip))
+        self.dl2 = (cycle(DataLoader(self._dataset2, self.batch_size,
+                                     num_workers=self._num_workers, seed=self._seed + 1,
+                                     skip=skip))
+                    if self._dataset2 is not None else None)
+
     def _denoise_fn(self, model: torch.nn.Module,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, remat: bool = False):
         """``denoise(x, t)`` of ``model``, returning fp32 (colddiff/train.py:
-        245-263).  With ``generator``, the model draws its dropout masks from
+        245-267).  With ``generator``, the model draws its dropout masks from
         it, each call from the generator's state at this call, so all calls
-        draw the same masks, as all JAX applies with one dropout key do."""
+        draw the same masks, as all JAX applies with one dropout key do.
+        With ``remat``, each call runs under ``torch.utils.checkpoint``; the
+        generator's replay is part of the checkpointed call, so its
+        recompute draws the same masks."""
         kwargs = {} if generator is None else {"generator": generator}
         state = None if generator is None else generator.get_state()
 
@@ -204,7 +247,15 @@ class Trainer:
             def fn(x, t):
                 replay()
                 return model(x.to(dtype), t, **kwargs).to(torch.float32)
+        if remat:
+            return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                                     use_reentrant=False)
         return fn
+
+    def _to_model_space(self, x: torch.Tensor) -> torch.Tensor:
+        """Dataset images (rgb [-1, 1]) as the model sees them: Lab with
+        ``to_lab`` (colddiff/train.py:338-345)."""
+        return rgb2lab(x) if self.to_lab else x
 
     def _next_superbatch(self, dl=None) -> torch.Tensor:
         """[accum, B, H, W, C] float32 on the device, from ``dl`` (the
@@ -212,8 +263,8 @@ class Trainer:
         dl = self.dl if dl is None else dl
         xs = torch.from_numpy(np.stack([next(dl) for _ in range(self.accum)]))
         if self.device.type == "cuda":
-            return xs.pin_memory().to(self.device, non_blocking=True)
-        return xs.to(self.device)
+            xs = xs.pin_memory().to(self.device, non_blocking=True)
+        return self._to_model_space(xs.to(self.device))
 
     def _maybe_reset_op(self) -> None:
         """Redraw the state of operators with ``random_snow`` before each step
@@ -239,15 +290,20 @@ class Trainer:
         op = self.diffusion.op
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
+        if self.debug_nans and not torch.isfinite(batch).all():
+            raise FloatingPointError("debug_nans: the batch holds a non-finite value")
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.accum):
             x = batch[i]
             x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
                        else x_end[i])
-            fn = self._denoise_fn(self.model, self.dropout_generator)
+            fn = self._denoise_fn(self.model, self.dropout_generator, remat=self.remat)
             loss = self.diffusion.loss(fn, x, self.generator,
                                        t=None if t is None else t[i], x_end=x_end_i,
                                        rng=None if rng is None else rng[i])
+            if self.debug_nans and not torch.isfinite(loss):
+                raise FloatingPointError(
+                    f"debug_nans: microbatch {i} of step {self.step + 1} has loss {loss.item()}")
             loss.backward()  # sums into .grad, as the JAX scan sums grads
             loss_sum += loss.detach()
         params = [p for p in self.model.parameters() if p.grad is not None]
@@ -266,13 +322,54 @@ class Trainer:
                 ema_update(ema, new, self.ema_decay)
         return loss_sum / self.accum
 
+    @staticmethod
+    def _host_rss_gb() -> float:
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS"):
+                        return int(line.split()[1]) / 1024 / 1024
+        except OSError:
+            pass
+        return 0.0
+
+    def _should_restart(self) -> bool:
+        if self.restart_every_steps and self.step % self.restart_every_steps == 0:
+            return True
+        return bool(self.restart_rss_gb and self._host_rss_gb() > self.restart_rss_gb)
+
+    def _start_profiler(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profiler(self) -> None:
+        """Stop the trace and write it as ``trace_steps_<start>_<stop>.json``
+        under ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        create_folder(self.profile_dir)
+        start, stop = self.profile_steps
+        self._profiler.export_chrome_trace(
+            str(Path(self.profile_dir) / f"trace_steps_{start}_{stop}.json"))
+        self._profiler = None
+
     def train(self, log_every: int = 100) -> str:
-        """Run to ``train_num_steps``; returns "done"."""
+        """Run to ``train_num_steps``.  Returns "done", or "restart" when a
+        ``restart_every_steps``/``restart_rss_gb`` boundary came first (the
+        checkpoint is saved; a Trainer with ``auto_resume`` continues)."""
         t0 = time.time()
         while self.step < self.train_num_steps:
+            if self.profile_dir and self.step == self.profile_steps[0]:
+                self._start_profiler()
             batch = self._next_superbatch()
             x_end = None if self.dl2 is None else self._next_superbatch(self.dl2)
             loss = self.train_step(batch, x_end=x_end)
+            if self._profiler is not None and self.step == self.profile_steps[1]:
+                self._stop_profiler()
             if self.step % log_every == 0:
                 loss_v = float(loss)
                 dt = time.time() - t0
@@ -290,6 +387,11 @@ class Trainer:
                 if (self.save_with_milestone_every
                         and self.step % self.save_with_milestone_every == 0):
                     self.save(self.results_folder / f"model_{self.step}.pt")
+            if self.step < self.train_num_steps and self._should_restart():
+                self.save()
+                print(f"step {self.step}: restart boundary -- checkpoint saved, "
+                      "handing back to supervisor", flush=True)
+                return "restart"
         self.save()
         return "done"
 
@@ -297,18 +399,17 @@ class Trainer:
         """(grid images, endpoint images or None) from loaders with their own
         seeds (colddiff/train.py:358-391), never more than a dataset holds;
         one batch size for both, since the endpoints pair with the images."""
-        bs = min(max(n, self.batch_size), len(self._snap_dataset))
-        if self._snap_dataset2 is not None:
-            bs = min(bs, len(self._snap_dataset2))
+        bs = min(max(n, self.batch_size), len(self._dataset))
+        if self._dataset2 is not None:
+            bs = min(bs, len(self._dataset2))
         if self._snap_dl is None or self._snap_bs < bs:
             self._snap_bs = bs
             self._snap_dl = cycle(DataLoader(
-                self._snap_dataset, bs, num_workers=self._snap_workers,
-                seed=self._snap_seed + 7919))
-            if self._snap_dataset2 is not None:
+                self._dataset, bs, num_workers=self._num_workers, seed=self._seed + 7919))
+            if self._dataset2 is not None:
                 self._snap_dl2 = cycle(DataLoader(
-                    self._snap_dataset2, bs, num_workers=self._snap_workers,
-                    seed=self._snap_seed + 7920))
+                    self._dataset2, bs, num_workers=self._num_workers,
+                    seed=self._seed + 7920))
         og = next(self._snap_dl)[:n]
         return og, None if self._snap_dl2 is None else next(self._snap_dl2)[:n]
 
@@ -317,7 +418,7 @@ class Trainer:
         (reference Trainer.train(), deblurring_diffusion_pytorch.py:1206-1228)."""
         n = batch_size or min(self.batch_size, 36)
         og_np, end_np = self._snapshot_batch(n)
-        og = torch.from_numpy(og_np).to(self.device)
+        og = self._to_model_space(torch.from_numpy(og_np).to(self.device))
         self.ema_model.eval()
         d = self.diffusion
         gen = torch.Generator(device=self.device).manual_seed(self.step)
@@ -325,11 +426,13 @@ class Trainer:
             # mix's endpoints come from the second dataset; an operator that
             # owns its endpoint draws it (train.py:326-336)
             x_end = (d.op.sample_x_end(gen, og) if end_np is None
-                     else torch.from_numpy(end_np).to(self.device))
+                     else self._to_model_space(torch.from_numpy(end_np).to(self.device)))
             res = sample(d, self._denoise_fn(self.ema_model),
                          prepare_start(d, og, x_end=x_end), x_end=x_end, generator=gen)
-        for name, imgs in [("og", og_np), ("xt", res.xt),
-                           ("direct_recons", res.direct_recons), ("sample", res.img)]:
+            # Lab grids go back to rgb before saving (colddiff/train.py:512-525)
+            grids = [lab2rgb(r) if self.to_lab else r
+                     for r in (res.xt, res.direct_recons, res.img)]
+        for name, imgs in zip(("og", "xt", "direct_recons", "sample"), (og_np, *grids)):
             if torch.is_tensor(imgs):
                 imgs = imgs.float().cpu().numpy()
             save_image_grid(imgs, self.results_folder / f"{name}-{milestone}.png")
@@ -367,6 +470,8 @@ class Trainer:
             self.diffusion = dataclasses.replace(
                 self.diffusion, op=self.diffusion.op.with_state(blob["op"], self.device))
         self.step = int(blob["step"])
+        # the loaders continue from this step: each step drew accum batches
+        self._start_loaders(self.step * self.accum)
 
     def save(self, path: Optional[str | os.PathLike] = None) -> None:
         path = Path(path or (self.results_folder / "model.pt"))

@@ -447,3 +447,57 @@ def test_fid_features_and_gmm_gpu_match_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="fp32"):
         gmm.fit_gmm(pts.to(cuda), 3, init_idx=init.to(cuda))
+
+
+# ---------------------------------------------------------------------- #
+# the CLI on the card (its default device), remat, the Lab conversions
+
+
+@pytest.mark.cuda
+def test_cli_train_then_test_on_the_card(cuda, tmp_path):
+    """No --device: the CLI runs on cuda.  One train step, its checkpoint,
+    then the manifold test from it; every model call launches the fronts."""
+    import json
+
+    from colddiff_torch.cli.main import main
+
+    flags = ["--degradation", "blur", "--blur_size", "3", "--blur_std", "1.0",
+             "--blur_routine", "Constant", "--dataset", "synthetic", "--image_size", "16",
+             "--time_steps", "3", "--dim", "8", "--batch_size", "4",
+             "--save_folder", str(tmp_path)]
+    before = convnext_front.launches
+    main(["train", *flags, "--train_steps", "1", "--save_and_sample_every", "1"])
+    fronts = 17  # the ConvNeXt blocks of UnetConvNext(dim=8), dim_mults (1, 2, 4, 8)
+    # 2 microbatches, then the snapshot's 3 reverse steps
+    assert convnext_front.launches - before == fronts * (2 + 3)
+    before = convnext_front.launches
+    main(["test", *flags, "--test_type", "test_fid_distance_decrease_from_manifold",
+          "--test_end", "8", "--load_path", str(tmp_path / "model.pt")])
+    assert convnext_front.launches - before == fronts * 3 * 2  # T=3, 2 batches of 4
+    metrics = json.loads((tmp_path / "manifold_metrics.json").read_text())
+    assert metrics["refresh_every"] == 1
+
+
+@pytest.mark.cuda
+def test_remat_on_the_card_launches_the_fronts_twice(cuda, tmp_path):
+    """remat: the recompute runs each front's kernel again in the backward
+    pass; the step's loss is the step's without remat."""
+    runs = []
+    for remat in (False, True):
+        tr = _small_bf16_trainer(cuda, tmp_path / str(remat), remat=remat)
+        t = torch.tensor([[0, 7], [3, 5]], device=cuda)
+        before = convnext_front.launches
+        loss = tr.train_step(tr._next_superbatch(), t=t).item()
+        runs.append((loss, convnext_front.launches - before))
+    assert runs[0] == (runs[1][0], 9 * 2) and runs[1][1] == 2 * 9 * 2
+
+
+@pytest.mark.cuda
+def test_lab_and_hsv_gpu_match_cpu(cuda):
+    from colddiff_torch.ops.image import hsv2rgb, lab2rgb, rgb2hsv, rgb2lab
+
+    x = torch.rand(2, 33, 17, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    for fn, inp in ((rgb2lab, x), (lab2rgb, rgb2lab(x)), (rgb2hsv, (x + 1) / 2),
+                    (hsv2rgb, rgb2hsv((x + 1) / 2))):
+        want, got = fn(inp), fn(inp.to(cuda)).cpu()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5, fn.__name__

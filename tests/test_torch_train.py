@@ -259,10 +259,9 @@ def test_load_torch_path_reads_a_reference_checkpoint(tmp_path):
 def test_trainer_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(ValueError, match="not both"):
         _port_trainer(tmp_path, load_path="a", load_torch_path="b")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port_trainer(tmp_path, param_sharding="fsdp")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port_trainer(tmp_path, remat=True)
+    for name, value in (("param_sharding", "fsdp"), ("fsdp_min_size", 1), ("mesh", object())):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            _port_trainer(tmp_path, **{name: value})
     with pytest.raises(TypeError):
         _port_trainer(tmp_path, not_an_argument=1)
     if not torch.cuda.is_available():

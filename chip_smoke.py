@@ -129,6 +129,21 @@ checks it, in phases:
      ``train`` step of ``decolor --to_lab`` with its snapshot, and
      ``rgb2lab``/``lab2rgb`` on the card vs the CPU; a ``Trainer``
      profiler window (steps 1-3) whose trace names the tile kernel.
+ 26. parallelism (``colddiff_torch.parallel``): (a) phase 8's ``Trainer``
+     at full width, 3 timed steps after a warm-up with no process group,
+     then under ``init_multihost`` (a group of one process, NCCL)
+     replicated and with ``param_sharding="fsdp"``, then once more without
+     a group after its end, each from one state and one batch stream, its
+     losses and updates held against the run without a group within the
+     bf16 train-step tolerance (train images/s, peak memory, 17 front
+     launches a forward), and the FSDP run's ``model.pt`` loaded bitwise
+     into a ``Trainer`` of one process; (b) ``python -m
+     colddiff_torch.scripts.dryrun_multichip --n 2 --flagship`` as a call:
+     two processes sharing the card over gloo with CUDA tensors, one
+     replicated step (8 images a process x accum 2) and a T=200 sample of
+     16 held against one process, each process's front launches counted,
+     and one FSDP step; (c) in the same group, the manifold harness with
+     ``mesh=`` over 64 images, its metrics equal to phase 24's dict.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -162,6 +177,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -179,8 +195,10 @@ from colddiff_torch.ops import bisect_mosaic as probe_ops
 from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, cluster_config,
                                               convnext_front, convnext_front_plain)
 from colddiff_torch.ops.image import lab2rgb, rgb2lab
+from colddiff_torch import parallel
 from colddiff_torch.sampling import all_sample, prepare_start, sample, sample_multi_step
 from colddiff_torch.scripts import bisect_mosaic as probe_script
+from colddiff_torch.scripts import dryrun_multichip
 from colddiff_torch.train import Trainer
 
 SEED = 0
@@ -223,6 +241,9 @@ CLI_TEST_END = 32  # the manifold test's images, in batches of BATCH
 CLI_LAB_T = 20  # the to_lab decolor step (phase 13's T)
 PROFILE_STEPS = (1, 3)
 REMAT_UPDATE_REL_L2 = 2e-2  # the bf16 train-step tolerance of the port's tests
+PAR_STEPS = 3  # phase 26: timed Trainer steps a placement, after one warm-up
+PAR_LOSS_RTOL = 1e-3  # a step's loss against the one without a process group
+METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-5  # a mesh harness's metrics (tests/test_parallel.py)
 LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
 REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
@@ -1534,6 +1555,144 @@ def cli_path(device, card: str):
     return row
 
 
+def rel_l2_all(a, b) -> float:
+    """Relative L2 of the tensors of ``a`` against those of ``b``, all together."""
+    num = math.sqrt(sum((x.double() - y.double()).square().sum().item() for x, y in zip(a, b)))
+    return num / math.sqrt(sum(y.double().square().sum().item() for y in b))
+
+
+def parallel_steps(tr, device):
+    """One warm-up step and PAR_STEPS timed ones of ``tr`` from its loader;
+    returns (losses, the update over all steps, step seconds, front
+    launches, small-C launches, peak bytes)."""
+    before = [p.detach().clone() for p in parallel.full_state_dict(tr.model).values()]
+    losses = [tr.train_step(tr._next_superbatch()).item()]
+    reset_peak(device)
+    zero_launches()
+    seconds = []
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(tr._next_superbatch()).item())
+        seconds.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    after = parallel.full_state_dict(tr.model).values()
+    update = [a.detach() - b for a, b in zip(after, before)]
+    return losses, update, seconds, launches[0], launches[1], peak
+
+
+def parallel_path(device, card: str, eval_scores: dict):
+    """Phase 26, as the module docstring says.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    row = dict(phase="26")
+    d = blur_diffusion(IMG, T, device)
+    ds = SyntheticDataset(IMG, 3, length=64, seed=SEED + 26)
+    kw = dict(train_batch_size=BATCH, gradient_accumulate_every=ACCUM, bf16=True,
+              num_workers=8, seed=SEED, save_and_sample_every=10**9, device=device)
+    images = BATCH * ACCUM
+    with tempfile.TemporaryDirectory() as folder:
+        def no_group(name):
+            return parallel_steps(Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), ds,
+                                          results_folder=f"{folder}/{name}", **kw), device)
+
+        runs = {"none": no_group("none")}
+        parallel.init_multihost(device=device)
+        backend = torch.distributed.get_backend()
+        for mode in ("replicated", "fsdp"):
+            tr = Trainer(d, seeded_unet(SEED, device, **FLAGSHIP), ds,
+                         results_folder=f"{folder}/{mode}", param_sharding=mode, **kw)
+            runs[mode] = parallel_steps(tr, device)
+            if mode == "fsdp":
+                tr.save()
+                saved = tr.state()
+            del tr
+        torch.distributed.destroy_process_group()
+        # the FSDP checkpoint in a Trainer of one process without a group
+        one = Trainer(d, seeded_unet(SEED + 1, device, **FLAGSHIP), ds,
+                      results_folder=f"{folder}/one", load_path=f"{folder}/fsdp/model.pt",
+                      **kw)
+        got = one.state()
+        bitwise = (got["step"] == saved["step"] == 1 + PAR_STEPS
+                   and all(torch.equal(got[k][n].cpu(), v.cpu())
+                           for k in ("model", "ema") for n, v in saved[k].items())
+                   and all(torch.equal(got["opt"]["state"][i][n].cpu(), v.cpu())
+                           for i, st in saved["opt"]["state"].items() for n, v in st.items()))
+        del one, got, saved
+        # the run without a group again: what the group's presence cost the host
+        runs["none_after"] = no_group("none_after")
+    if backend != "nccl" or not bitwise:
+        raise AssertionError(f"phase 26 (a): backend {backend}, FSDP checkpoint into one "
+                             f"process bitwise {bitwise}")
+    ref_losses, ref_update = runs["none"][:2]
+    labels = {"none": "without a process group",
+              "replicated": f"replicated under init_multihost, world 1, {backend}",
+              "fsdp": f"fsdp under init_multihost, world 1, {backend}",
+              "none_after": "without a process group again, after the group's end"}
+    for mode, label in labels.items():
+        losses, update, seconds, launches, small, peak = runs[mode]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        upd = rel_l2_all(update, ref_update)
+        if not (all(math.isfinite(x) for x in losses) and loss_err <= PAR_LOSS_RTOL
+                and upd <= REMAT_UPDATE_REL_L2
+                and (launches, small) == (17 * ACCUM * PAR_STEPS, ACCUM * PAR_STEPS)):
+            raise AssertionError(f"phase 26 (a) {mode}: losses {losses} vs {ref_losses}, "
+                                 f"update rel L2 {upd}, launches {(launches, small)}")
+        row[mode] = dict(losses=losses, loss_rel_err=loss_err, update_rel_l2=upd,
+                         bitwise=loss_err == 0.0 and upd == 0.0,
+                         step_ms=1e3 * float(np.median(seconds)),
+                         train_images_per_s=images / float(np.median(seconds)),
+                         peak_bytes=peak, launches=launches, small_c_launches=small)
+        log(f"[26] (a) Trainer {label}: "
+            f"B={BATCH} x accum {ACCUM} {IMG}px bf16, {PAR_STEPS} steps after a warm-up, "
+            f"median {row[mode]['step_ms']:.3f} ms a step, "
+            f"{row[mode]['train_images_per_s']:.3f} train images/s, peak memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB); losses {losses}, rel err {loss_err:.3e} (<= "
+            f"{PAR_LOSS_RTOL}), updates rel L2 {upd:.3e} (<= {REMAT_UPDATE_REL_L2}; bitwise "
+            f"{row[mode]['bitwise']}); front launches {launches} = 17 x {ACCUM} x "
+            f"{PAR_STEPS}, small-C {small}; card: {card}")
+    log(f"[26] (a) FSDP checkpoint (model.pt of the world-1 {backend} run) loaded into a "
+        f"Trainer of one process without a group: model, EMA and Adam's state bitwise")
+    row["fsdp_checkpoint_bitwise"] = bitwise
+
+    # (b), (c): two processes sharing the card over gloo
+    with tempfile.TemporaryDirectory() as folder:
+        weights = f"{folder}/flagship.pt"
+        torch.save(seeded_unet(SEED, "cpu", **FLAGSHIP).state_dict(), weights)
+        t0 = time.perf_counter()
+        res = dryrun_multichip.run(2, "cuda", flagship=True, weights=weights)
+        dry_s = time.perf_counter() - t0
+    per_rank = 17 * (ACCUM + T)  # the step's two microbatches and the T=200 sample
+    if res["backend"] != "gloo" or res["launches"] != [per_rank] * 2:
+        raise AssertionError(f"phase 26 (b): backend {res['backend']}, front launches per "
+                             f"process {res['launches']}, expected {[per_rank] * 2}")
+    worst = 0.0
+    for k in dryrun_multichip.METRICS:
+        err = abs(res["metrics"][k] - eval_scores[k])
+        worst = max(worst, err / abs(eval_scores[k]))
+        if not err <= METRIC_ATOL + METRIC_RTOL * abs(eval_scores[k]):
+            raise AssertionError(f"phase 26 (c) {k}: mesh {res['metrics'][k]}, phase 24 "
+                                 f"{eval_scores[k]}")
+    row.update(dryrun=res, dryrun_seconds=dry_s, mesh_vs_phase24_rel_err=worst)
+    log(f"[26] (b) dryrun_multichip --n 2 --flagship on one card ({res['backend']}, CUDA "
+        f"tensors): one replicated step B={BATCH} ({dryrun_multichip.FLAGSHIP.batch} a "
+        f"process) x accum {ACCUM}, loss {res['loss']} vs {res['loss_1']} on one process, "
+        f"gradient rel L2 {res['grad_rel_l2']:.3e} (<= "
+        f"{dryrun_multichip.FLAGSHIP.params_rtol}), updates rel L2 "
+        f"{res['update_rel_l2']:.3e}, T={T} sample of {BATCH} rel L2 "
+        f"{res['samples_rel_l2']:.3e} (<= {dryrun_multichip.FLAGSHIP.samples_tol}); front "
+        f"launches per process {res['launches']} = 17 x ({ACCUM} + {T}); FSDP step (gloo, "
+        f"CUDA tensors) loss {res['fsdp_loss']}; {dry_s:.2f} s with the processes' start-up")
+    log(f"[26] (c) EvalHarness(mesh=) over the two processes ({res['backend']}, CUDA "
+        f"tensors), "
+        f"fid_distance_decrease_from_manifold 64 images at batch 32: metrics == phase 24's "
+        f"single-device dict, worst rel err {worst:.3e} (<= {METRIC_RTOL} + {METRIC_ATOL}); "
+        f"card: {card}")
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[26] phase seconds {row['phase_seconds']:.2f} (backends: {backend} in (a), "
+        f"{res['backend']} in (b) and (c))")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -1820,11 +1979,16 @@ def main() -> int:
 
     # 24. the eval surface
     reset_peak(dev)
-    log("[24] " + json.dumps(eval_path(dev, card)))
+    eval_row = eval_path(dev, card)
+    log("[24] " + json.dumps(eval_row))
 
     # 25. the command line
     reset_peak(dev)
     log("[25] " + json.dumps(cli_path(dev, card)))
+
+    # 26. the Trainer under a process group; two processes on the card
+    reset_peak(dev)
+    log("[26] " + json.dumps(parallel_path(dev, card, eval_row["scores"]), default=float))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

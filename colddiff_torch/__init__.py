@@ -11,7 +11,9 @@ snow), both UNet families (``UnetConvNext``, ``UnetResNet``) and
 ``get_model``, ``ColdDiffusion`` (``q_sample`` and every training routine),
 the ``prepare_start`` / ``sample`` / ``all_sample`` / ``sample_multi_step``
 reverse samplers (Family A and Family B, models of every training routine),
-the single-device ``Trainer`` with all its switches, the datasets of
+the ``Trainer`` with all its switches, on one process or several
+(``colddiff_torch.parallel``: data parallelism, FSDP, multi-process
+start-up, mesh-sharded eval), the datasets of
 ``colddiff.data`` (``get_dataset``, ``create_data``), the eval surface of
 ``colddiff.eval`` (the image metrics, FID with its Inception pool3 graph
 and fallback extractor, the EM Gaussian mixture and the ``EvalHarness``)

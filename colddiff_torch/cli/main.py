@@ -15,9 +15,14 @@ Flag names, aliases, defaults and choices are the JAX CLI's (--time_steps,
 unless ``--device cpu`` is passed.  The checkpoint is
 ``<results>/model.pt``.
 
-Multi-process training and sharding are ROADMAP.md section 1, item 12:
-``--multihost``, ``--coordinator_address`` and ``--param_sharding fsdp``
-raise ``NotImplementedError``; ``--eval_mesh auto`` evaluates on one card.
+Several processes (colddiff/cli/main.py:509-521): ``--multihost`` joins
+the group that a launcher such as ``torchrun`` describes in the
+environment; ``--coordinator_address host:port --num_processes N
+--process_id i`` joins one without a launcher; ``--param_sharding fsdp``
+shards the Trainer's state (alone, a group of one process).  Every process
+runs the same command; the restart supervisor decides before any group or
+card is touched.  ``--eval_mesh auto`` shards evaluation over the group
+when it has more than one process.
 """
 
 from __future__ import annotations
@@ -30,8 +35,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-
-_ITEM_12 = "see ROADMAP.md section 1, item 12 (parallelism)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,11 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--bf16", action="store_true")
         sp.add_argument("--param_sharding", default="replicated",
                         choices=["replicated", "fsdp"],
-                        help="fsdp is not ported (ROADMAP.md item 12)")
+                        help="fsdp: the parameters, EMA and Adam moments sharded "
+                             "over the processes (fully_shard)")
+        # several processes: a launcher's environment (--multihost) or the
+        # three explicit values
         sp.add_argument("--multihost", action="store_true",
-                        help="not ported (ROADMAP.md item 12)")
+                        help="join the process group a launcher (torchrun) describes")
         sp.add_argument("--coordinator_address", default=None,
-                        help="not ported (ROADMAP.md item 12)")
+                        help="host:port of process 0 (without a launcher)")
         sp.add_argument("--num_processes", type=int, default=None)
         sp.add_argument("--process_id", type=int, default=None)
         # blur
@@ -146,8 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "algorithm)")
     te.add_argument("--fid_weights", default=None)
     te.add_argument("--eval_mesh", choices=["auto", "off"], default="auto",
-                    help="evaluation runs on one card either way; sharded "
-                         "eval is ROADMAP.md item 12")
+                    help="auto: shard evaluation over the processes; "
+                         "off: every process evaluates the whole batch")
     te.add_argument("--gmm_cluster", type=int, default=1)
     te.add_argument("--gmm_size", type=int, default=16,
                     help="low-res side for the degraded-image GMM")
@@ -240,6 +246,8 @@ def make_operator(args, image_size, channels):
 
 
 def build(args):
+    import torch
+
     from ..diffusion import ColdDiffusion
     from ..models import get_model
 
@@ -253,6 +261,9 @@ def build(args):
         sampling_routine=args.sampling_routine,
         discrete=args.discrete, recon_noise_std=args.recon_noise_std,
     )
+    # the weights start from --seed, as the JAX Trainer's init from key(seed)
+    # does, so every process of a run builds the same model
+    torch.manual_seed(args.seed)
     model = get_model(
         args.model, dataset=args.dataset, image_size=image_size,
         channels=channels, with_time_emb=not args.remove_time_embed,
@@ -332,7 +343,8 @@ def run_train(args, raw_argv=None):
         auto_resume=args.resume_training,
         restart_every_steps=args.restart_every_steps,
         restart_rss_gb=args.restart_rss_gb,
-        bf16=args.bf16, seed=args.seed, to_lab=args.to_lab, device=args.device,
+        bf16=args.bf16, seed=args.seed, to_lab=args.to_lab,
+        param_sharding=args.param_sharding, device=args.device,
     )
     if trainer.train() == "restart":
         sys.exit(_RESTART_EXIT_CODE)
@@ -408,8 +420,12 @@ def _host(x) -> np.ndarray:
 
 def dispatch(harness, args, ds, ds2=None):
     """Run ``args.test_type``'s harness method (``TEST_TYPES``) on ``ds``
-    with the CLI's arguments, as colddiff/cli/main.py:388-500 does."""
+    with the CLI's arguments, as colddiff/cli/main.py:388-500 does; over
+    several processes, rank 0 writes the files."""
+    from ..parallel import process_index
     from ..utils import save_image_grid
+
+    writes = process_index() == 0
 
     tt = args.test_type
     _check_test_type(tt)
@@ -425,20 +441,23 @@ def dispatch(harness, args, ds, ds2=None):
     def manifold(h):
         out = h.fid_distance_decrease_from_manifold(
             ds, start=args.test_start, end=args.test_end, batch_size=args.batch_size)
-        with open(Path(_results_folder(args)) / "manifold_metrics.json", "w") as f:
-            json.dump(out, f, indent=2, default=float)
+        if writes:
+            with open(Path(_results_folder(args)) / "manifold_metrics.json", "w") as f:
+                json.dump(out, f, indent=2, default=float)
 
     def gmm_mean(h):
         res = h.gmm_mean_samples(ds, clusters=args.gmm_cluster, num=args.batch_size,
                                  noise_level=args.noise)
-        save_image_grid(_host(res.img), h.results_folder / "gmm_samples.png")
+        if writes:
+            save_image_grid(_host(res.img), h.results_folder / "gmm_samples.png")
 
     def gmm_blur(h):
         res = h.gmm_blur_samples(
             ds, clusters=args.gmm_cluster, num=args.batch_size,
             sample_at=args.gmm_sample_at or args.sample_steps,
             gmm_res=args.gmm_size, noise_level=args.noise)
-        save_image_grid(_host(res.img), h.results_folder / "gmm_blur_samples.png")
+        if writes:
+            save_image_grid(_host(res.img), h.results_folder / "gmm_blur_samples.png")
 
     runners = {
         "test_from_data": lambda h: h.test_from_data(first_batch()),
@@ -490,6 +509,7 @@ def run_test(args):
     import torch
 
     from ..eval.harness import EvalHarness
+    from ..parallel import make_mesh, process_count
     from ..train import Trainer
 
     _check_test_type(args.test_type)
@@ -502,33 +522,35 @@ def run_test(args):
         train_num_steps=0, seed=args.seed, device=args.device,
     )
     ds2 = _second_dataset(args, image_size, "center")
-    if (args.eval_mesh == "auto" and torch.device(args.device).type == "cuda"
+    # mesh-parallel eval over the processes (colddiff/cli/main.py:364-375);
+    # one process evaluates on its one card
+    mesh = None
+    if args.eval_mesh == "auto" and process_count() > 1:
+        mesh = trainer.mesh or make_mesh(torch.device(args.device).type)
+    elif (args.eval_mesh == "auto" and torch.device(args.device).type == "cuda"
             and torch.cuda.device_count() > 1):
         print(f"colddiff_torch: {torch.cuda.device_count()} cards visible; evaluating "
-              f"on {args.device} alone (sharded eval is not ported; {_ITEM_12})",
-              file=sys.stderr, flush=True)
+              f"on {args.device} alone (one process a card, through torchrun or "
+              "--num_processes, shards it)", file=sys.stderr, flush=True)
     harness = EvalHarness(trainer.diffusion, trainer.ema_model,
                           results_folder=_results_folder(args),
                           fid_weights=args.fid_weights, to_lab=args.to_lab,
-                          endpoint_dataset=ds2, refresh_every=args.refresh_every,
-                          bf16=args.bf16, device=args.device)
+                          endpoint_dataset=ds2, mesh=mesh,
+                          refresh_every=args.refresh_every, bf16=args.bf16,
+                          device=args.device)
     del trainer  # the training weights and Adam's moments: the harness needs neither
     dispatch(harness, args, ds, ds2)
 
 
 def main(argv=None):
     import torch
+    import torch.distributed as dist
 
     args = build_parser().parse_args(argv)
     raw_argv = [str(a) for a in (argv if argv is not None else sys.argv[1:])]
-    if args.multihost or args.coordinator_address:
-        raise NotImplementedError(
-            f"--multihost/--coordinator_address: multi-process runs are not ported; {_ITEM_12}")
-    if args.param_sharding != "replicated":
-        raise NotImplementedError(
-            f"--param_sharding {args.param_sharding} is not ported; {_ITEM_12}")
     if args.command == "train" and _is_restart_supervisor(args):
-        # supervise before touching a device: the workers own the card
+        # supervise before touching a device or joining a group: the workers
+        # own the card and the group
         sys.exit(_supervise_train(raw_argv))
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("colddiff_torch runs on a CUDA device by default, but none "
@@ -536,10 +558,20 @@ def main(argv=None):
     # the degrade math and the metrics refuse TF32 (ops/linop.py)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.command == "train":
-        run_train(args, raw_argv)
-    else:
-        run_test(args)
+    joined = bool(args.multihost or args.coordinator_address or args.param_sharding == "fsdp")
+    if joined:
+        from ..parallel import init_multihost
+
+        init_multihost(args.coordinator_address, num_processes=args.num_processes,
+                       process_id=args.process_id, device=args.device)
+    try:
+        if args.command == "train":
+            run_train(args, raw_argv)
+        else:
+            run_test(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ operator's drawn state (``op.sample_rng_state``), which ``loss`` draws once
 and hands to every ``q_sample`` of that loss, as the JAX loss hands one key
 to both (colddiff/diffusion.py:103-120).  The noise routines draw their
 noise from a ``torch.Generator`` (``loss`` hands down its own); a given
-``noise`` replaces the draw, so the tests replay the JAX normals.
+``noise`` replaces the draw, so the tests replay the JAX normals.  Inside
+``parallel.batch_rows`` each batch-shaped draw (t, the noise) is made for
+the global batch, and this process keeps its rows.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from .operators.base import Degradation
 from .ops.image import quantize_uint8
+from .parallel.mesh import draw_rows
 
 __all__ = ["ColdDiffusion", "DenoiseFn", "X0_ROUTINES"]
 
@@ -137,7 +140,8 @@ class ColdDiffusion:
         if generator is None:
             raise ValueError(f"train routine '{self.train_routine}' draws noise: it "
                              "needs a torch.Generator or the noise itself")
-        return torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)
+        return draw_rows(lambda n: torch.randn((n, *shape[1:]), generator=generator,
+                                               dtype=x.dtype, device=x.device), shape[0])
 
     @staticmethod
     def _randomize_mean(x: torch.Tensor, new_mean: torch.Tensor) -> torch.Tensor:
@@ -157,8 +161,8 @@ class ColdDiffusion:
         endpoint."""
         b = x_start.shape[0]
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
-                              device=x_start.device)
+            t = draw_rows(lambda n: torch.randint(0, self.num_timesteps, (n,),
+                                                  generator=generator, device=x_start.device), b)
         if rng is None:
             rng = self.op.sample_rng_state(generator, b)
         return self.p_losses(denoise_fn, x_start, t, x_end=x_end, rng=rng,

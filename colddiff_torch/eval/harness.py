@@ -37,6 +37,7 @@ import torch
 from ..diffusion import ColdDiffusion
 from ..operators.base import table_device
 from ..ops.image import lab2rgb, resize_bilinear, rgb2lab
+from ..parallel.mesh import batch_rows, gather_rows, replicate, shard_batch
 from ..sampling import SampleResult, all_sample, prepare_start, sample
 from ..utils import apply_in_chunks, create_folder, save_gif, save_image_grid
 from .fid import calculate_fid_given_samples, fid_features_fn
@@ -66,10 +67,6 @@ class EvalHarness:
         bf16: bool = False,
         device: torch.device | str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EvalHarness(mesh=...) is not ported to colddiff_torch yet; see "
-                "ROADMAP.md section 1, item 12 (parallelism)")
         self.device = table_device(device, "EvalHarness")
         self.d = dataclasses.replace(diffusion, op=diffusion.op.to(self.device))
         # opt-in prediction caching (sampling.sample): K=1 (default) is the
@@ -80,6 +77,18 @@ class EvalHarness:
         # fp32, so the reverse loop and every degrade stay fp32
         self.bf16 = bf16
         model = model.to(self.device).eval()
+        # mesh-parallel eval (colddiff/eval/harness.py:62-76): the model is
+        # replicated (rank 0's weights), each process samples its rows of a
+        # batch the mesh divides and the rows are gathered back, so every
+        # process holds the results and rank 0 alone writes files.  JAX
+        # scales ``model_chunk`` with the mesh so each chip runs model_chunk
+        # rows a call; here each process calls the model on its own rows, so
+        # ``model_chunk`` stays the rows of one call on one process
+        self.mesh = mesh
+        self.rank, self.world = (0, 1) if mesh is None else (mesh.get_local_rank(),
+                                                            mesh.size())
+        if mesh is not None:
+            replicate(model, mesh)
         self.model = copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
         self.model_chunk = model_chunk
         # Family-B demixing: degradation endpoints come from a second dataset
@@ -129,10 +138,40 @@ class EvalHarness:
         return self._tensor(np.stack([dataset[int(i)] for i in idxs]))
 
     def _sample(self, d: ColdDiffusion, img, t=None, **kw) -> SampleResult:
-        return sample(d, self.denoise, img, t, refresh_every=self.refresh_every, **kw)
+        return self._sharded(sample, d, img, t, **kw)
 
     def _all_sample(self, d: ColdDiffusion, img, t=None, **kw) -> SampleResult:
-        return all_sample(d, self.denoise, img, t, refresh_every=self.refresh_every, **kw)
+        return self._sharded(all_sample, d, img, t, **kw)
+
+    def _sharded(self, fn, d: ColdDiffusion, img, t=None, *, x_end=None, **kw) -> SampleResult:
+        """``fn`` (a sampler) on ``img``; under a mesh that divides the batch,
+        each process runs its rows (and ``x_end``'s) inside ``batch_rows``, so
+        the sampler's draws are the whole batch's, and the rows are gathered
+        back.  A batch the mesh does not divide runs whole on every process,
+        as the JAX harness leaves it unsharded (``_place``)."""
+        kw["refresh_every"] = self.refresh_every
+        if self.world == 1 or img.shape[0] % self.world:
+            return fn(d, self.denoise, img, t, x_end=x_end, **kw)
+        with batch_rows(self.rank, self.world):
+            res = fn(d, self.denoise, shard_batch(img, self.mesh), t,
+                     x_end=None if x_end is None else shard_batch(x_end, self.mesh), **kw)
+        # the trajectories are [frames, B, ...]: their batch is dim 1
+        return SampleResult(*(None if f is None else gather_rows(f, self.mesh, dim=int(i > 2))
+                              for i, f in enumerate(res)))
+
+    def _mesh_pad(self, x: torch.Tensor):
+        """Pad the batch to a mesh multiple by repeating its last row; returns
+        ``(padded, real rows)``, and callers slice the outputs back."""
+        n = x.shape[0]
+        pad = (-n) % self.world
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        return x, n
+
+    def _write(self, save, *args, **kw) -> None:
+        """A file of ``save``, written by rank 0 alone under a mesh."""
+        if self.rank == 0:
+            save(*args, **kw)
 
     # ------------------------------------------------------------------ #
 
@@ -190,12 +229,12 @@ class EvalHarness:
         x0s = self._post(res.x0_trajectory)
         xts = self._post(res.xt_trajectory)
         root = self.results_folder
-        save_image_grid(_host(og), root / f"og-{milestone}.png")
+        self._write(save_image_grid, _host(og), root / f"og-{milestone}.png")
         for k in range(x0s.shape[0]):
-            save_image_grid(x0s[k], root / f"x0-{milestone}-{k}.png")
-            save_image_grid(xts[k], root / f"xt-{milestone}-{k}.png")
-        save_gif(list(x0s), root / f"x0-{milestone}.gif", fps=fps, titles=True)
-        save_gif(list(xts), root / f"xt-{milestone}.gif", fps=fps, titles=True)
+            self._write(save_image_grid, x0s[k], root / f"x0-{milestone}-{k}.png")
+            self._write(save_image_grid, xts[k], root / f"xt-{milestone}-{k}.png")
+        self._write(save_gif, list(x0s), root / f"x0-{milestone}.gif", fps=fps, titles=True)
+        self._write(save_gif, list(xts), root / f"xt-{milestone}.gif", fps=fps, titles=True)
         return res
 
     def test_with_mixup(self, batch1, batch2, milestone: str = "mixup", generator=None):
@@ -220,7 +259,7 @@ class EvalHarness:
         for name, imgs in [("og", _host(og)), ("xt", self._post(res.xt)),
                            ("direct_recons", self._post(res.direct_recons)),
                            ("recon", self._post(res.img))]:
-            save_image_grid(imgs, root / f"sample-{name}-{extra}.png")
+            self._write(save_image_grid, imgs, root / f"sample-{name}-{extra}.png")
         return res
 
     def save_training_data(self, dataset, num: int = 64):
@@ -233,7 +272,7 @@ class EvalHarness:
             arr = ((np.asarray(dataset[i]) + 1) * 127.5).astype(np.uint8)
             if arr.shape[-1] == 1:
                 arr = arr[..., 0]
-            Image.fromarray(arr).save(out / f"{i}.png")
+            self._write(Image.fromarray(arr).save, out / f"{i}.png")
         return out
 
     def opt(self, batch, t: Optional[int] = None, generator=None):
@@ -301,16 +340,18 @@ class EvalHarness:
             out[f"{fid_key}_degraded"] - out[f"{fid_key}_sampled"]
         )
         for k, v in out.items():
-            print(f"{k}: {v:.5f}" if isinstance(v, float) else f"{k}: {v}")
+            if self.rank == 0:
+                print(f"{k}: {v:.5f}" if isinstance(v, float) else f"{k}: {v}")
         return out
 
     def _manifold_batch(self, batch, generator, originals, degradeds, sampleds, directs):
-        og = self._tensor(batch)
-        start, x_end, op = self._degrade_start(self._pre(og), generator)
+        # a batch the mesh does not divide is padded (colddiff/eval/harness.py:350)
+        og, n = self._mesh_pad(self._pre(self._tensor(batch)))
+        start, x_end, op = self._degrade_start(og, generator)
         res = self._sample(dataclasses.replace(self.d, op=op), start, x_end=x_end,
                            generator=generator)
-        rows = [np.asarray(batch, np.float32), self._post(res.xt), self._post(res.img),
-                self._post(res.direct_recons)]
+        rows = [np.asarray(batch, np.float32), self._post(res.xt[:n]), self._post(res.img[:n]),
+                self._post(res.direct_recons[:n])]
         if rows[0].shape[1] > 256:
             # torch F.interpolate(size=64) default mode='nearest'
             # (snowification diffusion.py:1050-1054): src = floor(i * scale)
@@ -451,12 +492,12 @@ class EvalHarness:
                                                  traj_stride=traj_stride))
         if save:
             tag = f"{siz}-{clusters}-vec"
-            save_image_grid(self._post(start), self.results_folder / f"og-{tag}.png")
+            self._write(save_image_grid, self._post(start), self.results_folder / f"og-{tag}.png")
             x0s = [_host(f) for f in res.x0_trajectory]
             xts = [_host(f) for f in res.xt_trajectory]
-            save_gif(x0s + [_host(res.img)],
+            self._write(save_gif, x0s + [_host(res.img)],
                      self.results_folder / f"Gif-{tag}-x0.gif", titles=True)
-            save_gif(xts + [_host(res.img)],
+            self._write(save_gif, xts + [_host(res.img)],
                      self.results_folder / f"Gif-{tag}-xt.gif", titles=True)
         return res
 
@@ -622,8 +663,8 @@ class EvalHarness:
                                                  generator=gen))
         fwd = [self._post(f) for f in fwd_m]
         bwd = [_host(f) for f in res.xt_trajectory] + [_host(res.img)]
-        save_gif(fwd, self.results_folder / f"{prefix}-forward.gif")
-        save_gif(bwd, self.results_folder / f"{prefix}-backward.gif")
+        self._write(save_gif, fwd, self.results_folder / f"{prefix}-forward.gif")
+        self._write(save_gif, bwd, self.results_folder / f"{prefix}-backward.gif")
         return fwd, bwd
 
     def paper_cover_page(self, batch, n_frames: int = 8, generator=None,
@@ -668,14 +709,13 @@ class EvalHarness:
                               constant_values=color))
         return np.concatenate(out, axis=1)
 
-    @staticmethod
-    def _save_png(img, path):
+    def _save_png(self, img, path):
         from PIL import Image
 
         img = ((np.clip(_host(img), -1, 1) + 1) * 127.5).astype(np.uint8)
         if img.shape[-1] == 1:
             img = img[..., 0]
-        Image.fromarray(img).save(path)
+        self._write(Image.fromarray(img).save, path)
         return path
 
     def paper_invert_section_images(self, batch, s_times=None, generator=None):
@@ -784,10 +824,11 @@ class EvalHarness:
         xt = self.d.op.degrade_range(self._pre(img), start, self.d.num_timesteps)
         res = self._post_result(self._sample(self.d, xt, generator=gen))
         root = self.results_folder
-        save_image_grid(_host(img), root / f"sample-og-{prefix}.png")
-        save_image_grid(_host(res.xt), root / f"sample-xt-{prefix}.png")
-        save_image_grid(_host(res.direct_recons), root / f"sample-direct_recons-{prefix}.png")
-        save_image_grid(_host(res.img), root / f"sample-recon-{prefix}.png")
+        self._write(save_image_grid, _host(img), root / f"sample-og-{prefix}.png")
+        self._write(save_image_grid, _host(res.xt), root / f"sample-xt-{prefix}.png")
+        self._write(save_image_grid, _host(res.direct_recons),
+                    root / f"sample-direct_recons-{prefix}.png")
+        self._write(save_image_grid, _host(res.img), root / f"sample-recon-{prefix}.png")
         return res
 
     def paper_trajectory_strip(self, batch, n_frames: int = 8, generator=None,

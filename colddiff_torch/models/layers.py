@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.convnext_front import convnext_front
+from ..parallel.mesh import draw_rows
 
 __all__ = [
     "gelu",
@@ -258,9 +259,19 @@ class SoftmaxAttention(nn.Module):
 def _keep_mask(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
     """Flax's dropout mask for ``x``: keep where a uniform draw is below
     1 - p.  The draws take ``x``'s memory format, so the mask of a
-    channels_last activation is channels_last too."""
-    u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
-    return u < 1.0 - p
+    channels_last activation is channels_last too.  Under
+    ``parallel.batch_rows`` the draw is the global batch's, made with
+    ``x``'s strides, so each process keeps the 1-process mask's rows."""
+
+    def draw(n: int) -> torch.Tensor:
+        if n == x.shape[0]:  # one process: x's own layout, whatever its strides
+            u = torch.empty_like(x, dtype=torch.float32)
+        else:
+            u = torch.empty_strided((n, *x.shape[1:]), x.stride(), dtype=torch.float32,
+                                    device=x.device)
+        return u.uniform_(generator=generator)
+
+    return draw_rows(draw, x.shape[0]) < 1.0 - p
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

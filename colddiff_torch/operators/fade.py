@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows, local_rows
 from ..schedules import fade_routine_sigmas, gaussian_kernel_2d
 from .base import Degradation, table_device
 
@@ -84,8 +85,9 @@ class Fade(Degradation):
         """[B, 2] crop offsets, each in [0, S] (fade.py:84-85), or None."""
         if not self.random:
             return None
-        return torch.randint(0, self.image_size + 1, (batch_size, 2), generator=generator,
-                             device=self.cum_masks.device)
+        return draw_rows(lambda n: torch.randint(0, self.image_size + 1, (n, 2),
+                                                 generator=generator,
+                                                 device=self.cum_masks.device), batch_size)
 
     def randomize(self, generator, batch_size: int) -> "Fade":
         """Bake per-sample crop offsets for a whole sampling run
@@ -107,7 +109,7 @@ class Fade(Degradation):
             if rng is not None:
                 off = rng
             elif self.offsets is not None:
-                off = self.offsets[:b]
+                off = self.offsets[local_rows(b)]  # the baked offsets are the whole batch's
             else:
                 off = torch.zeros((b, 2), dtype=torch.long, device=dev)
             # clamped into [0, S], so the gather stays inside the 2S grid

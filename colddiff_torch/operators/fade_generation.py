@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
 from .base import Degradation, bcast, table_device
 from .fade import fade_mask
 
@@ -82,6 +83,6 @@ class FadeGeneration(Degradation):
     def sample_x_end(self, generator, x):
         """A constant color in [-0.5, 0.5) per sample and channel
         (defading...pytorch.py:769-774: torch.rand(B, 3) - 0.5)."""
-        c = torch.rand((x.shape[0], 1, 1, x.shape[-1]), generator=generator,
-                       dtype=x.dtype, device=x.device) - 0.5
+        c = draw_rows(lambda n: torch.rand((n, 1, 1, x.shape[-1]), generator=generator,
+                                           dtype=x.dtype, device=x.device), x.shape[0]) - 0.5
         return c.expand(x.shape)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
 from .base import Degradation, bcast, table_device
 
 __all__ = ["FadeNaive", "spiral_order"]
@@ -98,6 +99,6 @@ class FadeNaive(Degradation):
         other routines, whose degrade has no endpoint."""
         if not self.requires_x_end:
             return None
-        c = torch.rand((x.shape[0], 1, 1, x.shape[-1]), generator=generator, dtype=x.dtype,
-                       device=x.device)
+        c = draw_rows(lambda n: torch.rand((n, 1, 1, x.shape[-1]), generator=generator,
+                                           dtype=x.dtype, device=x.device), x.shape[0])
         return c.expand(x.shape)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import draw_rows
 from ..schedules import cosine_alphas_cumprod
 from .base import Degradation, bcast, table_device
 
@@ -84,7 +85,8 @@ class GaussianNoise(Interpolation):
     """Hot baseline: x_end ~ N(0, I) (denoising_diffusion_pytorch.py:738-742)."""
 
     def sample_x_end(self, generator, x):
-        return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return draw_rows(lambda n: torch.randn((n, *x.shape[1:]), generator=generator,
+                                               dtype=x.dtype, device=x.device), x.shape[0])
 
 
 class Animorphosis(Interpolation):

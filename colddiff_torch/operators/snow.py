@@ -27,6 +27,7 @@ import torch
 
 from ..ops.image import clipped_zoom, rgb_to_grayscale
 from ..ops.linop import conv1d_matrix, require_ieee_fp32
+from ..parallel.mesh import local_rows
 from ..schedules import gaussian_kernel_1d
 from .base import Degradation, bcast, table_device
 
@@ -165,7 +166,9 @@ class Snow(Degradation):
         dev = self.snow.device
         n = self._levels(n, dev)
         idx = torch.clamp(n - 1, 0, self.timesteps - 1)
-        lidx = torch.arange(x.shape[0], device=dev) % self.snow.shape[1]
+        # the fields are the global batch's; a process reads its rows' layers
+        here = local_rows(x.shape[0])
+        lidx = torch.arange(here.start, here.stop, device=dev) % self.snow.shape[1]
         sn = self.snow[idx, lidx][..., None]  # [B, H, W, 1]
         sn_rot = self.snow_rot[idx, lidx][..., None]
         og_r = (og + 1.0) * 0.5

@@ -54,6 +54,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from . import _build
 
@@ -132,6 +133,12 @@ def _check_vector(name: str, t: Optional[torch.Tensor], shape: tuple,
 
 def _launch(x, w, b, cond, gamma, beta, norm: bool, eps: float) -> torch.Tensor:
     """Check what the kernel takes, then launch it on the current stream."""
+    for name, t in (("x", x), ("w", w), ("b", b), ("cond", cond), ("gamma", gamma),
+                    ("beta", beta)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"convnext_front: {name} is a DTensor {t.placements}, and the "
+                            "kernel reads whole tensors: gather it first (fully_shard's "
+                            "forward does)")
     if x.dim() != 4:
         raise ValueError(f"convnext_front: x must be [B, C, H, W], got {tuple(x.shape)}")
     bsz, c, hgt, wid = x.shape

@@ -27,6 +27,10 @@ says, whatever the operator (snowification diffusion.py:239-245): ``Step``
 models predict x_{t-1}, ``Step_Gradient`` models x_{t-1} - x_t, and
 ``Gradient_norm`` models the unit degradation direction, which is stepped
 against (defading_diffusion_naive.py:451-456).
+
+Inside ``parallel.batch_rows`` (the mesh ``EvalHarness``), the reverse
+step's draws (``recon_noise_std``'s noise, a drawn endpoint) are the global
+batch's, and this process keeps its rows.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .diffusion import X0_ROUTINES, ColdDiffusion, DenoiseFn
+from .parallel.mesh import draw_rows
 
 __all__ = ["SampleResult", "prepare_start", "sample", "all_sample",
            "sample_multi_step"]
@@ -104,9 +109,9 @@ def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
     if diffusion.recon_noise_std > 0.0:
         # snowification diffusion.py:222-225: perturb the reconstruction
         # before re-degrading; snow still blends from the clean x0_hat
-        base = x0_hat + diffusion.recon_noise_std * torch.randn(
-            x0_hat.shape, generator=generator, dtype=x0_hat.dtype,
-            device=x0_hat.device)
+        base = x0_hat + diffusion.recon_noise_std * draw_rows(
+            lambda n: torch.randn((n, *x0_hat.shape[1:]), generator=generator,
+                                  dtype=x0_hat.dtype, device=x0_hat.device), x0_hat.shape[0])
     return (img - op.degrade(base, n_t, og=x0_hat)
             + op.degrade(base, n_tm1, og=x0_hat)), x0_hat
 

@@ -59,13 +59,31 @@ Switches, as in the JAX Trainer:
     so a run cut into workers takes the batches of an unbroken one (the JAX
     Trainer starts its loaders anew).
 
-Not ported yet: multi-process training and parameter sharding (ROADMAP.md
-section 1, item 12).  Passing ``param_sharding``, ``fsdp_min_size`` or
-``mesh`` raises ``NotImplementedError``.
+Multi-process training (colddiff/train.py:133-150, after
+``colddiff_torch.parallel.init_multihost``; ``mesh`` defaults to one over
+the process group): ``train_batch_size`` is global and divides over the
+processes, each process's loaders read its stripe of the dataset at
+``batch // processes`` rows, and every draw of a step above (t, the
+endpoint, the operator state, the noise, the dropout masks) is made for the
+global batch from the generators every process holds alike, each keeping
+its rows (``parallel.batch_rows``), so an n-process step equals the
+1-process step on the joined batch.  The gradient is averaged over the
+processes once an optimizer step, after the ``accum`` microbatches, in flat
+buckets; the reported loss is the mean over the processes.
+``param_sharding="fsdp"`` shards the model, the EMA and Adam's moments
+with ``fully_shard`` at ``parallel.fsdp_sharding``'s placements
+(``fsdp_min_size``), its ``MixedPrecisionPolicy`` gathering bf16 weights
+under ``bf16``; the EMA updates the local shards.  Sample grids come from
+rank 0 after every process gathers the EMA; ``save()`` gathers the whole
+state and rank 0 writes it, with the reference's names, so a checkpoint of
+any run loads into any other; logs and ``metrics.jsonl`` come from rank 0,
+and the RSS restart trigger stays single-process.  Without a process group
+no collective runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -77,20 +95,26 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from .data.datasets import DataLoader
 from .diffusion import ColdDiffusion
 from .models.convert import load_reference_checkpoint
 from .ops.image import lab2rgb, rgb2lab
 from .ops.linop import require_ieee_fp32
+from .parallel.mesh import (all_reduce_mean, batch_rows, full_state_dict, is_sharded, make_mesh,
+                            put_like, shard_like, shard_state)
 from .sampling import prepare_start, sample
 from .utils import bf16_params, create_folder, cycle, ema_update, save_image_grid
 
 __all__ = ["Trainer"]
 
-# JAX Trainer arguments not ported yet: ROADMAP.md section 1, item 12
-_UNPORTED = ("param_sharding", "fsdp_min_size", "mesh")
+
+def _local(tensors) -> list:
+    """The local shards of sharded tensors, the others as they are."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
 
 
 class Trainer:
@@ -124,15 +148,11 @@ class Trainer:
         restart_every_steps: int = 0,
         restart_rss_gb: float = 0.0,
         to_lab: bool = False,
+        param_sharding: str = "replicated",
+        fsdp_min_size: int = 2 ** 14,
+        mesh=None,
         device: torch.device | str = "cuda",
-        **unported,
     ):
-        for name in unported:
-            if name not in _UNPORTED:
-                raise TypeError(f"Trainer got an unexpected keyword argument '{name}'")
-            raise NotImplementedError(
-                f"Trainer argument '{name}' is not ported to colddiff_torch yet; "
-                "see ROADMAP.md section 1, item 12 (parallelism)")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -143,10 +163,36 @@ class Trainer:
             require_ieee_fp32(torch.empty(0, device=self.device))
         if load_path is not None and load_torch_path is not None:
             raise ValueError("pass load_path or load_torch_path, not both")
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"unknown param_sharding mode: {param_sharding!r}")
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(self.device.type)
+        if mesh is None and param_sharding == "fsdp":
+            raise ValueError("param_sharding='fsdp' shards over a process group: call "
+                             "colddiff_torch.parallel.init_multihost first (a group of "
+                             "one process will do)")
+        self.mesh = mesh
+        self.rank, self.world = (0, 1) if mesh is None else (mesh.get_local_rank(), mesh.size())
+        if train_batch_size % self.world:
+            raise ValueError(f"train_batch_size={train_batch_size} must divide over "
+                             f"{self.world} processes")
 
         self.diffusion = dataclasses.replace(diffusion, op=diffusion.op.to(self.device))
         self.model = model.to(self.device)
         self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
+        # the unsharded module that rank 0 loads the gathered EMA into to sample
+        self._template = (copy.deepcopy(self.model).cpu() if param_sharding == "fsdp"
+                          else None)
+        if mesh is not None:
+            policy = None
+            if bf16 and param_sharding == "fsdp":
+                from torch.distributed.fsdp import MixedPrecisionPolicy
+
+                policy = MixedPrecisionPolicy(param_dtype=torch.bfloat16,
+                                              reduce_dtype=torch.float32)
+            shard_state(self.model, mesh, param_sharding, min_size=fsdp_min_size,
+                        mp_policy=policy)
+            shard_state(self.ema_model, mesh, param_sharding, min_size=fsdp_min_size)
         self.batch_size = train_batch_size
         self.train_num_steps = train_num_steps
         self.accum = gradient_accumulate_every
@@ -174,8 +220,11 @@ class Trainer:
                       f"below the process baseline RSS ({base:.1f} GB); "
                       "every step would trigger a respawn -- raise the "
                       "threshold well above baseline", flush=True)
+        # Adam's foreach kernels refuse a group that mixes sharded and whole
+        # parameters (torch 2.11), so a sharded model steps tensor by tensor
         self.opt = torch.optim.Adam(self.model.parameters(), lr=train_lr,
-                                    betas=(0.9, 0.999), eps=1e-8)
+                                    betas=(0.9, 0.999), eps=1e-8,
+                                    foreach=False if is_sharded(self.model) else None)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(
             (1009 << 32) + seed)
@@ -201,8 +250,8 @@ class Trainer:
             # ({step, model, ema}, deblurring_diffusion_pytorch.py:1140-1149);
             # Adam restarts at zero, as the reference's resume does
             blob = torch.load(load_torch_path, map_location="cpu")
-            self.model.load_state_dict(load_reference_checkpoint(blob, use_ema=False))
-            self.ema_model.load_state_dict(load_reference_checkpoint(blob, use_ema=True))
+            put_like(load_reference_checkpoint(blob, use_ema=False), self.model)
+            put_like(load_reference_checkpoint(blob, use_ema=True), self.ema_model)
             self.step = int(blob.get("step", 0))
 
     # ------------------------------------------------------------------ #
@@ -210,12 +259,20 @@ class Trainer:
     def _start_loaders(self, skip: int) -> None:
         """The training loaders (and ``second_dataset``'s), continuing their
         seeded streams after ``skip`` batches."""
-        self.dl = cycle(DataLoader(self._dataset, self.batch_size,
-                                   num_workers=self._num_workers, seed=self._seed, skip=skip))
-        self.dl2 = (cycle(DataLoader(self._dataset2, self.batch_size,
-                                     num_workers=self._num_workers, seed=self._seed + 1,
-                                     skip=skip))
+        stripe = dict(process_index=self.rank, process_count=self.world, skip=skip)
+        local = self.batch_size // self.world
+        self.dl = cycle(DataLoader(self._dataset, local, num_workers=self._num_workers,
+                                   seed=self._seed, **stripe))
+        self.dl2 = (cycle(DataLoader(self._dataset2, local, num_workers=self._num_workers,
+                                     seed=self._seed + 1, **stripe))
                     if self._dataset2 is not None else None)
+
+    def _rows(self):
+        """Draws of batch-shaped tensors inside are the global batch's, each
+        process keeping its rows; nothing changes on one process."""
+        if self.world == 1:
+            return contextlib.nullcontext()
+        return batch_rows(self.rank, self.world)
 
     def _denoise_fn(self, model: torch.nn.Module,
                     generator: Optional[torch.Generator] = None, remat: bool = False):
@@ -225,28 +282,36 @@ class Trainer:
         draw the same masks, as all JAX applies with one dropout key do.
         With ``remat``, each call runs under ``torch.utils.checkpoint``; the
         generator's replay is part of the checkpointed call, so its
-        recompute draws the same masks."""
+        recompute draws the same masks.  The masks are the global batch's
+        rows (``_rows``), set inside the call too, since a recompute may run
+        on the autograd engine's own thread."""
         kwargs = {} if generator is None else {"generator": generator}
         state = None if generator is None else generator.get_state()
+        rows = self._rows if generator is not None else contextlib.nullcontext
 
         def replay():
             if state is not None:
                 generator.set_state(state)
 
         if self.bf16:
-            params = bf16_params(model.named_parameters())
+            # fully_shard's MixedPrecisionPolicy casts the sharded parameters
+            # as it gathers them; the others are cast here
+            params = bf16_params((n, p) for n, p in model.named_parameters()
+                                 if not isinstance(p, DTensor))
 
             def fn(x, t):
-                replay()
-                out = torch.func.functional_call(model, params,
-                                                 (x.to(torch.bfloat16), t), kwargs)
+                with rows():
+                    replay()
+                    out = torch.func.functional_call(model, params,
+                                                     (x.to(torch.bfloat16), t), kwargs)
                 return out.to(torch.float32)
         else:
             dtype = next(model.parameters()).dtype
 
             def fn(x, t):
-                replay()
-                return model(x.to(dtype), t, **kwargs).to(torch.float32)
+                with rows():
+                    replay()
+                    return model(x.to(dtype), t, **kwargs).to(torch.float32)
         if remat:
             return functools.partial(torch.utils.checkpoint.checkpoint, fn,
                                      use_reentrant=False)
@@ -285,7 +350,8 @@ class Trainer:
         ``t`` ([accum, B] levels), ``x_end`` ([accum, B, H, W, C]) and
         ``rng`` (per microbatch, an operator state of
         ``op.sample_rng_state``) replace the generator's draws; the tests
-        use them to replay the JAX Trainer's draws."""
+        use them to replay the JAX Trainer's draws.  Over several processes,
+        ``batch`` and these are this process's rows of the global step's."""
         self._maybe_reset_op()
         op = self.diffusion.op
         self.model.train()
@@ -295,32 +361,40 @@ class Trainer:
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.accum):
             x = batch[i]
-            x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
-                       else x_end[i])
             fn = self._denoise_fn(self.model, self.dropout_generator, remat=self.remat)
-            loss = self.diffusion.loss(fn, x, self.generator,
-                                       t=None if t is None else t[i], x_end=x_end_i,
-                                       rng=None if rng is None else rng[i])
+            with self._rows():
+                x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
+                           else x_end[i])
+                loss = self.diffusion.loss(fn, x, self.generator,
+                                           t=None if t is None else t[i], x_end=x_end_i,
+                                           rng=None if rng is None else rng[i])
             if self.debug_nans and not torch.isfinite(loss):
                 raise FloatingPointError(
                     f"debug_nans: microbatch {i} of step {self.step + 1} has loss {loss.item()}")
             loss.backward()  # sums into .grad, as the JAX scan sums grads
             loss_sum += loss.detach()
-        params = [p for p in self.model.parameters() if p.grad is not None]
-        torch._foreach_div_([p.grad for p in params], self.accum)
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        whole = [g for g in grads if not isinstance(g, DTensor)]
+        sharded = [g for g in grads if isinstance(g, DTensor)]
+        torch._foreach_div_(whole, self.accum)
+        if sharded:  # fully_shard averaged these over the processes at each backward
+            torch._foreach_div_(sharded, self.accum)
+        loss = loss_sum / self.accum
+        if self.world > 1:
+            all_reduce_mean([*whole, loss], self.mesh)
         self.opt.step()
 
         # EMA: every `update_ema_every` steps; reset to the params during
-        # warmup (colddiff/train.py:308-318)
+        # warmup (colddiff/train.py:308-318); on the local shards when sharded
         self.step += 1
         if self.step % self.update_ema_every == 0:
-            ema, new = list(self.ema_model.parameters()), list(self.model.parameters())
+            ema, new = _local(self.ema_model.parameters()), _local(self.model.parameters())
             if self.step < self.step_start_ema:
                 with torch.no_grad():
                     torch._foreach_copy_(ema, new)
             else:
                 ema_update(ema, new, self.ema_decay)
-        return loss_sum / self.accum
+        return loss
 
     @staticmethod
     def _host_rss_gb() -> float:
@@ -336,7 +410,10 @@ class Trainer:
     def _should_restart(self) -> bool:
         if self.restart_every_steps and self.step % self.restart_every_steps == 0:
             return True
-        return bool(self.restart_rss_gb and self._host_rss_gb() > self.restart_rss_gb)
+        # RSS is one process's: processes deciding apart would leave the
+        # others waiting in the next collective (colddiff/train.py:408-414)
+        return bool(self.restart_rss_gb and self.world == 1
+                    and self._host_rss_gb() > self.restart_rss_gb)
 
     def _start_profiler(self) -> None:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -363,7 +440,7 @@ class Trainer:
         checkpoint is saved; a Trainer with ``auto_resume`` continues)."""
         t0 = time.time()
         while self.step < self.train_num_steps:
-            if self.profile_dir and self.step == self.profile_steps[0]:
+            if self.profile_dir and self.rank == 0 and self.step == self.profile_steps[0]:
                 self._start_profiler()
             batch = self._next_superbatch()
             x_end = None if self.dl2 is None else self._next_superbatch(self.dl2)
@@ -374,10 +451,11 @@ class Trainer:
                 loss_v = float(loss)
                 dt = time.time() - t0
                 ips = log_every * self.accum * self.batch_size / dt
-                print(f"step {self.step}: loss {loss_v:.5f} ({ips:.1f} img/s)", flush=True)
-                with open(self.metrics_path, "a") as f:
-                    f.write(json.dumps({"step": self.step, "loss": loss_v,
-                                        "images_per_sec": round(ips, 2)}) + "\n")
+                if self.rank == 0:
+                    print(f"step {self.step}: loss {loss_v:.5f} ({ips:.1f} img/s)", flush=True)
+                    with open(self.metrics_path, "a") as f:
+                        f.write(json.dumps({"step": self.step, "loss": loss_v,
+                                            "images_per_sec": round(ips, 2)}) + "\n")
                 t0 = time.time()
             if self.step % self.save_and_sample_every == 0:
                 # the checkpoint first: the T-step sampler is the likelier
@@ -389,8 +467,9 @@ class Trainer:
                     self.save(self.results_folder / f"model_{self.step}.pt")
             if self.step < self.train_num_steps and self._should_restart():
                 self.save()
-                print(f"step {self.step}: restart boundary -- checkpoint saved, "
-                      "handing back to supervisor", flush=True)
+                if self.rank == 0:
+                    print(f"step {self.step}: restart boundary -- checkpoint saved, "
+                          "handing back to supervisor", flush=True)
                 return "restart"
         self.save()
         return "done"
@@ -415,11 +494,22 @@ class Trainer:
 
     def snapshot(self, milestone: int, batch_size: Optional[int] = None) -> None:
         """EMA sample grids ``og``, ``xt``, ``direct_recons`` and ``sample``
-        (reference Trainer.train(), deblurring_diffusion_pytorch.py:1206-1228)."""
+        (reference Trainer.train(), deblurring_diffusion_pytorch.py:1206-1228).
+        Over several processes, rank 0 alone samples and writes them, after
+        every process takes part in gathering a sharded EMA
+        (colddiff/train.py:480-500)."""
+        ema = self.ema_model
+        if is_sharded(ema):
+            state = full_state_dict(ema)
+            if self.rank == 0:
+                ema = copy.deepcopy(self._template).to(self.device)
+                ema.load_state_dict(state)
+        if self.rank != 0:
+            return
         n = batch_size or min(self.batch_size, 36)
         og_np, end_np = self._snapshot_batch(n)
         og = self._to_model_space(torch.from_numpy(og_np).to(self.device))
-        self.ema_model.eval()
+        ema.eval()
         d = self.diffusion
         gen = torch.Generator(device=self.device).manual_seed(self.step)
         with torch.inference_mode():
@@ -427,7 +517,7 @@ class Trainer:
             # owns its endpoint draws it (train.py:326-336)
             x_end = (d.op.sample_x_end(gen, og) if end_np is None
                      else self._to_model_space(torch.from_numpy(end_np).to(self.device)))
-            res = sample(d, self._denoise_fn(self.ema_model),
+            res = sample(d, self._denoise_fn(ema),
                          prepare_start(d, og, x_end=x_end), x_end=x_end, generator=gen)
             # Lab grids go back to rgb before saving (colddiff/train.py:512-525)
             grids = [lab2rgb(r) if self.to_lab else r
@@ -441,9 +531,10 @@ class Trainer:
 
     def state(self) -> dict:
         """The checkpoint blob ``{step, model, ema, opt, generator,
-        dropout_generator, op}``."""
-        return {"step": self.step, "model": self.model.state_dict(),
-                "ema": self.ema_model.state_dict(), "opt": self.opt.state_dict(),
+        dropout_generator, op}``, whole: a sharded run's gather, which every
+        process enters, in the 1-process layout."""
+        return {"step": self.step, "model": full_state_dict(self.model),
+                "ema": full_state_dict(self.ema_model), "opt": self._opt_state(),
                 "generator": self.generator.get_state(),
                 "dropout_generator": self.dropout_generator.get_state(),
                 "op": self.diffusion.op.state()}
@@ -456,11 +547,13 @@ class Trainer:
 
         Adam's moments and step counts come from the blob, its
         hyperparameters stay this Trainer's, as in the JAX Trainer, whose
-        checkpoint holds the optimizer state and not its configuration."""
-        self.model.load_state_dict(blob["model"])
-        self.ema_model.load_state_dict(blob["ema"])
+        checkpoint holds the optimizer state and not its configuration.
+        Every process loads the whole blob; a sharded model keeps its
+        shards."""
+        put_like(blob["model"], self.model)
+        put_like(blob["ema"], self.ema_model)
         own = [{k: v for k, v in g.items() if k != "params"} for g in self.opt.param_groups]
-        self.opt.load_state_dict(blob["opt"])
+        self._load_opt_state(blob["opt"])
         for group, hyper in zip(self.opt.param_groups, own):
             group.update(hyper)
         for key in ("generator", "dropout_generator"):
@@ -473,11 +566,32 @@ class Trainer:
         # the loaders continue from this step: each step drew accum batches
         self._start_loaders(self.step * self.accum)
 
+    def _opt_state(self) -> dict:
+        """Adam's state dict, its moments gathered whole when sharded."""
+        osd = self.opt.state_dict()
+        return full_state_dict(osd) if is_sharded(self.model) else osd
+
+    def _load_opt_state(self, osd: dict) -> None:
+        """Load a whole Adam state dict; each process keeps the shards of the
+        sharded parameters' moments."""
+        if is_sharded(self.model):
+            params = list(self.model.parameters())
+            osd = dict(osd, state={i: {k: shard_like(v, params[i]) if k != "step" else v
+                                       for k, v in st.items()}
+                                   for i, st in osd["state"].items()})
+        self.opt.load_state_dict(osd)
+
     def save(self, path: Optional[str | os.PathLike] = None) -> None:
+        """Write the checkpoint; every process enters (a sharded state is
+        gathered), rank 0 writes, and the others wait for the file."""
         path = Path(path or (self.results_folder / "model.pt"))
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        torch.save(self.state(), tmp)
-        os.replace(tmp, path)  # a crash mid-save leaves the last checkpoint whole
+        blob = self.state()
+        if self.rank == 0:
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            torch.save(blob, tmp)
+            os.replace(tmp, path)  # a crash mid-save leaves the last checkpoint whole
+        if self.world > 1:
+            dist.barrier(group=self.mesh.get_group())
 
     def load(self, path: str | os.PathLike) -> None:
         self.load_state(torch.load(path, map_location="cpu"))

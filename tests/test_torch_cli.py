@@ -256,9 +256,10 @@ def test_cli_to_lab_decolor_train(tmp_path):
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
     base = ["train", *TOY, "--save_folder", str(tmp_path)]
-    for extra in (["--multihost"], ["--coordinator_address", "localhost:1234"],
-                  ["--param_sharding", "fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    # the three values of a group without a launcher come together
+    for extra in (["--coordinator_address", "localhost:1234"],
+                  ["--multihost", "--num_processes", "2"]):
+        with pytest.raises(ValueError, match="together"):
             pcli.main(base + extra)
     with pytest.raises(SystemExit, match="data_path_2"):
         pcli.main(base + ["--degradation", "mix", "--train_steps", "0"])

@@ -501,3 +501,40 @@ def test_lab_and_hsv_gpu_match_cpu(cuda):
                     (hsv2rgb, rgb2hsv((x + 1) / 2))):
         want, got = fn(inp), fn(inp.to(cuda)).cpu()
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5, fn.__name__
+
+
+# ---------------------------------------------------------------------- #
+# parallelism on the card
+
+
+@pytest.mark.cuda
+def test_two_process_gloo_step_on_the_card_equals_one(cuda):
+    """Two processes sharing the card over gloo with CUDA tensors: the
+    replicated step, the sampling run and the mesh harness equal one
+    process's (dryrun_multichip's tiny check), and the FSDP step runs."""
+    from colddiff_torch.scripts import dryrun_multichip
+
+    res = dryrun_multichip.run(2, "cuda")
+    assert res["backend"] == "gloo" and res["device"] == "cuda"
+    assert res["launches"][0] == res["launches"][1] > 0
+    assert torch.isfinite(torch.tensor(res["fsdp_loss"]))
+
+
+@pytest.mark.cuda
+def test_front_refuses_a_dtensor_weight(cuda):
+    """A sharded weight never reaches the kernel: the wrapper raises rather
+    than read the local shard's storage."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from colddiff_torch.parallel import init_multihost, make_mesh
+
+    init_multihost(device="cuda")
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        x, w, b, cond, g, beta = _front_args(gen, 2, 64, 8, 8, True, torch.float32, cuda)
+        w_dt = distribute_tensor(w, make_mesh("cuda"), [Shard(0)])
+        with pytest.raises(TypeError, match="DTensor"):
+            convnext_front(x, w_dt, b, cond, g, beta)
+    finally:
+        dist.destroy_process_group()

@@ -282,8 +282,12 @@ def test_to_lab_and_bf16_match_jax(tmp_path, flax_params, batch):
 def test_mesh_and_a_missing_card_raise(tmp_path):
     d = ColdDiffusion(op=get_operator("blur", **BLUR, device="cpu"), image_size=S)
     model = UnetConvNext(dim=DIM, dim_mults=MULTS)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        EvalHarness(d, model, results_folder=str(tmp_path), mesh=object(), device="cpu")
+    # a mesh spans a process group: none without init_multihost
+    from colddiff_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="init_multihost"):
+        EvalHarness(d, model, results_folder=str(tmp_path), mesh=make_mesh("cpu"),
+                    device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             EvalHarness(d, model, results_folder=str(tmp_path))

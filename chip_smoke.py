@@ -144,6 +144,23 @@ checks it, in phases:
      16 held against one process, each process's front launches counted,
      and one FSDP step; (c) in the same group, the manifold harness with
      ``mesh=`` over 64 images, its metrics equal to phase 24's dict.
+ 27. row (spatial) sharding: ``dryrun_multichip.run(2, flagship=True,
+     space=2)``, two processes sharing the card over gloo on a (1, 2)
+     ``make_mesh_2d`` mesh, each holding 64 of the 128 rows of every
+     image inside ``parallel.image_rows``: (a) the flagship's 17 block
+     fronts (B=2) on row halves through the front kernel, which runs on the
+     block extended by 3 rows of its neighbour, against the whole-image
+     kernel, fp32 (<= 1e-4) and bf16 (<= 2e-2), with whether each is
+     bitwise equal; (b) an fp32 forward at B=2, gathered, against one
+     process (rel L2 <= 1e-3), with the collectives a forward makes; (c) a
+     bf16 prepare_start + sample (T=200, B=2: fewer images than processes'
+     row blocks, the latency case) against one process (rel L2 <= 2e-2),
+     3,400 front launches on each process, and each process's wall seconds
+     beside one process's; (d) in this process, a group of one (NCCL) on a
+     (1, 1) mesh: the fp32 forward and the bf16 T=200 sample inside
+     ``image_rows`` bitwise equal to the run without a group (cuDNN held
+     to its deterministic algorithms: its fp32 transposed conv is not
+     bitwise repeatable from call to call otherwise).
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -156,7 +173,8 @@ output byte written once at 3.35 TB/s, and each tap as one fp32 FMA
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero at once.  The line before the last is a JSON summary of the
-kernels; the last line is ``{"ok": true, "device": {...}}``.
+kernels, after phase 27's launch counts; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -244,6 +262,7 @@ REMAT_UPDATE_REL_L2 = 2e-2  # the bf16 train-step tolerance of the port's tests
 PAR_STEPS = 3  # phase 26: timed Trainer steps a placement, after one warm-up
 PAR_LOSS_RTOL = 1e-3  # a step's loss against the one without a process group
 METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-5  # a mesh harness's metrics (tests/test_parallel.py)
+SPACE = 2  # phase 27: processes on the space axis, sharing the card
 LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
 REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
@@ -1693,6 +1712,78 @@ def parallel_path(device, card: str, eval_scores: dict):
     return row
 
 
+def spatial_path(device, card: str) -> dict:
+    """Phase 27, as the module docstring says.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    cfg = dryrun_multichip.FLAGSHIP
+    with tempfile.TemporaryDirectory() as folder:
+        weights = f"{folder}/flagship.pt"
+        torch.save(seeded_unet(SEED, "cpu", **FLAGSHIP).state_dict(), weights)
+        t0 = time.perf_counter()
+        res = dryrun_multichip.run(SPACE, "cuda", flagship=True, weights=weights, space=SPACE)
+        dry_s = time.perf_counter() - t0
+    per_process = 17 * T
+    if not (res["backend"] == "gloo" and res["mesh"] == [1, SPACE] and len(res["fronts"]) == 17
+            and res["launches"] == [per_process] * SPACE
+            and res["launches_1"] == per_process):
+        raise AssertionError(f"phase 27: backend {res['backend']}, mesh {res['mesh']}, "
+                             f"{len(res['fronts'])} fronts, front launches per process "
+                             f"{res['launches']} (one process {res['launches_1']}), "
+                             f"expected {[per_process] * SPACE}")
+    row = dict(phase="27", dryrun=res, dryrun_seconds=dry_s)
+    for f in res["fronts"]:
+        log(f"[27] (a) front {f['shape']} norm={f['norm']} cond={f['cond']} on {SPACE} row "
+            f"blocks vs the whole image, both through the kernel: fp32 max err "
+            f"{f['max_abs_err_fp32']:.3e} (bitwise {f['bitwise_fp32']}), bf16 "
+            f"{f['max_abs_err_bf16']:.3e} (bitwise {f['bitwise_bf16']}); exchanged "
+            f"{f['exchanged']}")
+    log(f"[27] (b) fp32 forward B={cfg.space_batch} {IMG}px on a (1, {SPACE}) mesh, gathered: "
+        f"rel L2 {res['forward_rel_l2']:.3e} (<= {cfg.forward_tol}) against one process; "
+        f"{res['collectives_per_forward']} collectives a forward "
+        f"{res['collectives_by_kind']}")
+    log(f"[27] (c) bf16 prepare_start + sample T={T} B={cfg.space_batch} {IMG}px row-sharded "
+        f"over {SPACE} processes ({res['backend']}, CUDA tensors, one card): rel L2 "
+        f"{res['samples_rel_l2']:.3e} (<= {cfg.samples_tol}) against one process; front "
+        f"launches per process {res['launches']} = 17 x {T}; wall s per process "
+        f"{res['seconds']} vs one process {res['seconds_1']:.3f}; {dry_s:.2f} s with the "
+        f"processes' start-up; card: {card}")
+
+    # (d) a group of one on a (1, 1) mesh against no group, with cuDNN held
+    # to its deterministic algorithms: its fp32 transposed conv (Upsample)
+    # is not bitwise repeatable from call to call otherwise (PERF.md)
+    parallel.init_multihost(device=device)
+    backend = torch.distributed.get_backend()
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = parallel.make_mesh_2d(1, 1, "cuda")
+        model = seeded_unet(SEED, device, **FLAGSHIP)
+        gen = torch.Generator().manual_seed(SEED + 27)
+        x = torch.randn(cfg.space_batch, IMG, IMG, 3, generator=gen).to(device)
+        t = torch.randint(0, T, (cfg.space_batch,), generator=gen).to(device)
+        img = (torch.rand(cfg.space_batch, IMG, IMG, 3, generator=gen) * 2 - 1).to(device)
+        d = blur_diffusion(IMG, T, device)
+        denoise = bf16_denoise(copy.deepcopy(model).to(torch.bfloat16))
+        with torch.inference_mode():
+            plain = [model(x, t), sample(d, denoise, prepare_start(d, img)).img]
+            with parallel.image_rows(mesh):
+                grouped = [parallel.gather_images(model(parallel.shard_images(x, mesh), t), mesh),
+                           parallel.gather_images(sample(d, denoise, prepare_start(
+                               d, parallel.shard_images(img, mesh))).img, mesh)]
+        bitwise = [torch.equal(a, b) for a, b in zip(plain, grouped)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.distributed.destroy_process_group()
+    if not all(bitwise):
+        raise AssertionError(f"phase 27 (d): (1, 1) mesh vs no group bitwise {bitwise} "
+                             "(forward, sample)")
+    row.update(one_group_backend=backend, one_group_bitwise=bitwise)
+    log(f"[27] (d) a group of one ({backend}) on a (1, 1) mesh: the fp32 forward and the "
+        f"bf16 T={T} sample inside image_rows bitwise equal to the run without a group")
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[27] phase seconds {row['phase_seconds']:.2f}")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -1990,6 +2081,11 @@ def main() -> int:
     reset_peak(dev)
     log("[26] " + json.dumps(parallel_path(dev, card, eval_row["scores"]), default=float))
 
+    # 27. row sharding: two processes on the card, and a group of one
+    reset_peak(dev)
+    space_row = spatial_path(dev, card)
+    log("[27] " + json.dumps(space_row, default=float))
+
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16
         (the main path's dtype); max_abs_err is fp32, over its fronts."""
@@ -2027,6 +2123,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_us": r["bound_us"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "float4_path": r.get("float4_path"),
     } for r in probes]
+    log(f"[27] front launches of the row-sharded T={T} sample, per process: "
+        f"{space_row['dryrun']['launches']} (17 x {T}; one process {space_row['dryrun']['launches_1']})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

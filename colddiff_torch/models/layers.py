@@ -7,6 +7,12 @@ dropout.  Module and parameter names are the reference's torch names
 state dict loads with ``load_state_dict`` and no conversion.  The ResNet
 layers are stock torch ops: the JAX package computes them outside any
 Pallas kernel.
+
+Inside ``parallel.image_rows`` the ConvNeXt pieces run on this process's
+block of the image rows: the front and the 3x3, Downsample and Upsample
+convs take halos (``RowConv2d``, ``RowConvTranspose2d``), the linear
+attention's token softmax and context sum over the space group, and the
+per-pixel pieces stay local.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.convnext_front import convnext_front
+from ..parallel import spatial
 from ..parallel.mesh import draw_rows
 
 __all__ = [
@@ -27,6 +34,8 @@ __all__ = [
     "SinusoidalPosEmb",
     "ChannelLayerNorm",
     "ConvNextBlock",
+    "RowConv2d",
+    "RowConvTranspose2d",
     "linear_attention_folded",
     "LinearAttention",
     "Downsample",
@@ -104,6 +113,23 @@ class ChannelLayerNorm(nn.Module):
         return xn * self.g + self.b
 
 
+class RowConv2d(nn.Conv2d):
+    """``nn.Conv2d``; inside a row-sharded ``parallel.image_rows``, the conv
+    of this process's row block with a halo (``spatial.conv2d``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial.conv2d(self, x)
+
+
+class RowConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d``; inside a row-sharded ``parallel.image_rows``,
+    this process's output rows from its halo'd block
+    (``spatial.conv_transpose2d``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial.conv_transpose2d(self, x)
+
+
 class ConvNextBlock(nn.Module):
     """ConvNeXt block: depthwise 7x7 + (norm -> 3x3 -> GELU -> 3x3) + residual.
 
@@ -121,9 +147,9 @@ class ConvNextBlock(nn.Module):
         self.ds_conv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.net = nn.Sequential(
             ChannelLayerNorm(dim) if norm else nn.Identity(),
-            nn.Conv2d(dim, dim_out * mult, 3, padding=1),
+            RowConv2d(dim, dim_out * mult, 3, padding=1),
             GELU(),
-            nn.Conv2d(dim_out * mult, dim_out, 3, padding=1),
+            RowConv2d(dim_out * mult, dim_out, 3, padding=1),
         )
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
@@ -148,6 +174,11 @@ def linear_attention_folded(xt, wqkv, wout, bout, heads: int, scale: float):
     softmax(k) over tokens, per-head contexts as the diagonal blocks of one
     [hidden, hidden] product, and q (and, when c <= hidden, the out
     projection) folded into one per-batch weight.
+
+    Inside a row-sharded ``parallel.image_rows`` the N tokens are this
+    process's: the softmax takes the group's max and sum (at least fp32),
+    ``ks`` is cast to xt's dtype where the whole-image code casts it, and
+    the context is summed over the group in at least fp32 and cast once.
     """
     c = xt.shape[-1]
     hidden = wqkv.shape[0] // 3
@@ -159,10 +190,16 @@ def linear_attention_folded(xt, wqkv, wout, bout, heads: int, scale: float):
     # bits.  Tokens go last, in one contiguous copy: torch's softmax over a
     # strided dim=1 runs a kernel that took 30 of a 41 ms flagship step on
     # the H100, and a non-contiguous input costs it another copy (PERF.md)
-    k_last = kv[..., :hidden].transpose(1, 2).to(
-        _stat_dtype(kv), memory_format=torch.contiguous_format)
-    ks = torch.softmax(k_last, dim=-1).to(xt.dtype)
-    ctx = torch.einsum("bdn,bne->bde", ks, kv[..., hidden:]) * mask
+    sd = _stat_dtype(kv)
+    k_last = kv[..., :hidden].transpose(1, 2).to(sd, memory_format=torch.contiguous_format)
+    if spatial.current() is None:
+        ks = torch.softmax(k_last, dim=-1).to(xt.dtype)
+        ctx = torch.einsum("bdn,bne->bde", ks, kv[..., hidden:]) * mask
+    else:
+        e = torch.exp(k_last - spatial.group_max(k_last.amax(dim=-1, keepdim=True)))
+        ks = (e / spatial.group_sum(e.sum(dim=-1, keepdim=True))).to(xt.dtype)
+        ctx = spatial.group_sum(torch.einsum("bdn,bne->bde", ks.to(sd),
+                                             kv[..., hidden:].to(sd))).to(xt.dtype) * mask
     w1 = torch.einsum("dc,bde->bce", wqkv[:hidden] * scale, ctx)
     if c <= hidden:
         return torch.einsum("bnc,bcf->bnf", xt, w1 @ wout.t()) + bout
@@ -192,12 +229,12 @@ class LinearAttention(nn.Module):
 
 def Downsample(dim: int) -> nn.Module:
     """Stride-2 4x4 conv (deblurring...py:105-109)."""
-    return nn.Conv2d(dim, dim, 4, 2, 1)
+    return RowConv2d(dim, dim, 4, 2, 1)
 
 
 def Upsample(dim: int) -> nn.Module:
     """Stride-2 4x4 transposed conv (deblurring...py:105-106)."""
-    return nn.ConvTranspose2d(dim, dim, 4, 2, 1)
+    return RowConvTranspose2d(dim, dim, 4, 2, 1)
 
 
 def group_norm_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

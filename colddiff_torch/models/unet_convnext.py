@@ -9,6 +9,11 @@ names are the reference's: ``time_mlp.1``, ``downs.{i}.{0,1,2,3}``,
 activations are NCHW tensors in ``torch.channels_last`` memory, which is the
 NHWC layout the ConvNeXt-front kernel reads and which cuDNN takes natively.
 
+Inside ``parallel.image_rows`` the forward runs on this process's block of
+the image rows (``layers`` has the exchanges; the spatial means of
+``output_mean_scale`` are the group's); H must divide by space *
+2**(len(dim_mults) - 1), so every level's block holds whole rows.
+
 Canonical config (celebA_128.py:78-84):
 ``UnetConvNext(dim=64, dim_mults=(1, 2, 4, 8), channels=3)``.
 """
@@ -20,6 +25,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .layers import (
     GELU,
     ChannelLayerNorm,
@@ -116,6 +122,8 @@ class UnetConvNext(nn.Module):
         """x: [B, H, W, C] images; time: [B] integer levels.  Returns NHWC.
         ``generator`` is taken and ignored (this UNet has no dropout), as the
         JAX module ignores ``train``, so a Trainer calls both families alike."""
+        spatial.check_height(x.shape[1], 2 ** (len(self.downs) - 1),
+                             f"UnetConvNext with {len(self.downs) - 1} downsamples")
         orig_x = x
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         t = None
@@ -125,7 +133,7 @@ class UnetConvNext(nn.Module):
             t = self.time_mlp[0](time).to(x.dtype)
             t = self.time_mlp[3](gelu(self.time_mlp[1](t)))
 
-        original_mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        original_mean = spatial.group_mean(x, (1, 2, 3)) if self.output_mean_scale else None
 
         hs = []
         for block1, block2, attn, downsample in self.downs:
@@ -152,6 +160,6 @@ class UnetConvNext(nn.Module):
         if self.residual:
             return out + orig_x
         if self.output_mean_scale:
-            out_mean = out.mean(dim=(1, 2, 3), keepdim=True)
+            out_mean = spatial.group_mean(out, (1, 2, 3))
             out = out - original_mean + out_mean
         return out

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import FusedGroupNormSwish, SoftmaxAttention, dropout, swish
 
 __all__ = ["UnetResNet", "timestep_embedding"]
@@ -172,6 +173,7 @@ class UnetResNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, H, W, C] images at ``resolution``; t: [B] integer levels.
         ``generator`` draws the dropout masks in training mode.  Returns NHWC."""
+        spatial.refuse("UnetResNet (GroupNorm statistics, softmax attention)")
         if not x.shape[1] == x.shape[2] == self.resolution:
             raise ValueError(f"UnetResNet(resolution={self.resolution}) got images of "
                              f"{tuple(x.shape[1:3])}")

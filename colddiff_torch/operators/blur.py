@@ -10,6 +10,10 @@ both circular and reflect padding.
 The ``discrete`` flag (unconditional generation path) collapses the final
 level to the per-image channel mean (deblurring_diffusion_pytorch.py:413-415,
 :937-940).
+
+Inside a row-sharded ``parallel.image_rows`` the degrades run on this
+process's rows (``linop.apply_rowcol``) and the collapse takes the group's
+mean.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import linop
+from ..parallel import spatial
 from ..schedules import blur_routine_params, gaussian_kernel_1d
 from .base import Degradation, table_device
 
@@ -77,7 +82,7 @@ class GaussianBlur(Degradation):
 
     def _collapse_discrete(self, y: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         """At the final level the image collapses to its channel mean."""
-        mean = y.mean(dim=(1, 2), keepdim=True)
+        mean = spatial.group_mean(y, (1, 2))
         at_final = (n == self.timesteps).reshape(-1, 1, 1, 1)
         return torch.where(at_final, mean.expand_as(y), y)
 

@@ -17,6 +17,7 @@ import torch
 
 from ..ops.image import lab2rgb, rgb2lab
 from ..ops.linop import cumulative_matrices, require_ieee_fp32
+from ..parallel import spatial
 from ..schedules import decolor_routine_thetas
 from .base import Degradation, bcast, table_device
 
@@ -61,6 +62,7 @@ class Decolorization(Degradation):
         return torch.einsum("bij,bhwj->bhwi", m, x.to(torch.float32))
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         n = self._levels(n, self.cum.device)
         m = self.cum[n]  # [B, C, C]
         if self.to_lab:

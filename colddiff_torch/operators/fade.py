@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import spatial
 from ..parallel.mesh import draw_rows, local_rows
 from ..schedules import fade_routine_sigmas, gaussian_kernel_2d
 from .base import Degradation, table_device
@@ -102,6 +103,7 @@ class Fade(Degradation):
         return self.randomize(generator, batch_size)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         dev = self.cum_masks.device
         m = self.cum_masks[self._levels(n, dev)]  # [B, grid, grid]
         if self.random:

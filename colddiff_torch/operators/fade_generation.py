@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import spatial
 from ..parallel.mesh import draw_rows
 from .base import Degradation, bcast, table_device
 from .fade import fade_mask
@@ -68,6 +69,7 @@ class FadeGeneration(Degradation):
         return n, self.alphas[idx][..., None]  # [B, S, S, 1]
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         if x_end is None:
             raise ValueError("FadeGeneration.degrade needs x_end (draw it with "
                              "sample_x_end)")

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import spatial
 from ..parallel.mesh import draw_rows
 from .base import Degradation, bcast, table_device
 
@@ -86,6 +87,7 @@ class FadeNaive(Degradation):
                    fade_routine=fade_routine, image_size=image_size)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         n = self._levels(n, self.cum.device)
         f = self.cum[n][..., None]  # [B, 1 or S, 1 or S, 1]
         y = x * f

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import spatial
 from ..parallel.mesh import draw_rows
 from ..schedules import cosine_alphas_cumprod
 from .base import Degradation, bcast, table_device
@@ -48,6 +49,7 @@ class Interpolation(Degradation):
         return n, bcast(self.sqrt_ac[idx], ndim), bcast(self.sqrt_1mac[idx], ndim)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         if x_end is None:
             raise ValueError(f"{type(self).__name__}.degrade needs x_end, the endpoint image")
         n, a, b = self._coefs(n, x.dim())
@@ -60,6 +62,7 @@ class Interpolation(Degradation):
             r      = sqrt_ac[n1-1] / sqrt_ac[n0-1]
             x_{n1} = r * x + (sqrt_1mac[n1-1] - r * sqrt_1mac[n0-1]) * x_end
         """
+        spatial.refuse(f"{type(self).__name__}.degrade_range")
         n0, n1 = int(n0), int(n1)
         if not 0 <= n0 <= n1 <= self.timesteps:
             raise ValueError(f"invalid range [{n0}, {n1}] for T={self.timesteps}")

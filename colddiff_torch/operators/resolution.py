@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import linop
+from ..parallel import spatial
 from ..schedules import gaussian_kernel_1d, resolution_routine_sizes
 from .base import Degradation, table_device
 
@@ -53,4 +54,5 @@ class Resolution(Degradation):
                    cum=torch.as_tensor(linop.cumulative_matrices(mats), device=device))
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         return linop.apply_separable(x, self.cum, self._levels(n, self.cum.device))

@@ -27,6 +27,7 @@ import torch
 
 from ..ops.image import clipped_zoom, rgb_to_grayscale
 from ..ops.linop import conv1d_matrix, require_ieee_fp32
+from ..parallel import spatial
 from ..parallel.mesh import local_rows
 from ..schedules import gaussian_kernel_1d
 from .base import Degradation, bcast, table_device
@@ -161,6 +162,7 @@ class Snow(Degradation):
         return new
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
+        spatial.refuse(f"{type(self).__name__}.degrade")
         if og is None:
             og = x
         dev = self.snow.device

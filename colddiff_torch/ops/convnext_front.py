@@ -36,6 +36,16 @@ already contiguous in the compute dtype copies nothing: the kernel reads
 So all 17 block fronts of the flagship UNet run through a kernel (the TPU
 kernel took only C | 128 with C < 128).
 
+Inside ``parallel.image_rows`` x is this process's block of the image
+rows, and the call takes the TPU kernel's partition rule for row-sharded
+input (colddiff/ops/pallas/convnext_front.py:290-315): the block gains 3
+rows of each neighbour (zeros past the image's edges, the conv's own
+padding), the same kernel runs on the [B, C, h + 6, W] block, and rows
+3..h+2 of its output are kept; a block of fewer than 3 rows gathers the
+whole rows instead and keeps its own.  One launch a call either way, and
+the backward recomputes on the extended block, the exchange returning the
+halo rows' gradients (``parallel.spatial``).
+
 On a CPU tensor the same call runs :func:`convnext_front_plain`, the plain
 PyTorch version, which the tests hold against the JAX reference and which
 ``chip_smoke.py`` holds the kernel against.  A CUDA tensor never falls back
@@ -56,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from ..parallel import spatial
 from . import _build
 
 __all__ = ["convnext_front", "convnext_front_plain", "cluster_config", "MAX_CHANNELS",
@@ -64,6 +75,7 @@ __all__ = ["convnext_front", "convnext_front_plain", "cluster_config", "MAX_CHAN
 TILE_MAX_CHANNELS = 1024  # the tile kernel's largest C (kTileMaxChannels in the .cu)
 MAX_CHANNELS = 8192  # the cluster form's largest C (kMaxChannels in the .cu)
 SMALL_C = 32  # C < SMALL_C launches the small-C kernel (kSmallCLimit in the .cu)
+HALO = 3  # rows of each neighbour a row block needs: the 7x7 conv's reach
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -222,7 +234,14 @@ def convnext_front(x, w, b, cond, gamma, beta, *, norm: bool = True,
     """
     if norm and (gamma is None or beta is None):
         raise ValueError("convnext_front: norm=True needs gamma and beta")
-    return _Front.apply(x, w, b, cond, gamma, beta, norm, eps)
+    if spatial.current() is None:
+        return _Front.apply(x, w, b, cond, gamma, beta, norm, eps)
+    h = x.shape[2]
+    if h < HALO:  # thinner than the halo: the whole rows, then this block's
+        whole = spatial.gather(x, 2)
+        return spatial.local(_Front.apply(whole, w, b, cond, gamma, beta, norm, eps), 2)
+    xe = spatial.halo(x, HALO, HALO, 2)
+    return _Front.apply(xe, w, b, cond, gamma, beta, norm, eps).narrow(2, HALO, h)
 
 
 convnext_front.launches = 0

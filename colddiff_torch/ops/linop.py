@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import spatial
+
 __all__ = [
     "conv1d_matrix",
     "resize1d_matrix",
@@ -179,9 +181,16 @@ def apply_rowcol(x: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> torch
 
     x: [B, H, W, C]; row: [B, H, H]; col: [B, W, W].
     Returns y[b] = row[b] @ x[b] @ col[b]^T per channel -- two batched matmuls.
+
+    Inside a row-sharded ``parallel.image_rows`` x is this process's block
+    of h rows: the group's rows are gathered in fp32 and multiplied by this
+    process's h rows of ``row``; the column product stays local.
     """
     require_ieee_fp32(x)
     x = x.to(torch.float32)
+    if spatial.current() is not None:
+        row = spatial.local(row, 1)
+        x = spatial.gather(x, 1)
     y = torch.einsum("bij,bjwc->biwc", row, x)
     return torch.einsum("bij,bhjc->bhic", col, y)
 

@@ -1,6 +1,6 @@
 """Multi-process training, sharding and evaluation: the twin of
 ``colddiff/parallel`` (one process per card; see ``distributed`` and
-``mesh``)."""
+``mesh``), with row sharding's exchanges in ``spatial``."""
 
 from .distributed import init_multihost, local_device, process_count, process_index  # noqa: F401
 from .mesh import (  # noqa: F401
@@ -10,7 +10,9 @@ from .mesh import (  # noqa: F401
     draw_rows,
     fsdp_sharding,
     full_state_dict,
+    gather_images,
     gather_rows,
+    image_rows,
     image_sharding,
     is_sharded,
     local_rows,

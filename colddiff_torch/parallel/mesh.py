@@ -20,15 +20,20 @@ global batch, so the same step needs three things here:
     placements; :func:`put_like` and :func:`full_state_dict` load and gather
     a whole state dict either way.
 
-Spatial sharding (``make_mesh_2d``, ``image_sharding``, ``shard_images``)
-is not ported: ROADMAP.md section 1, item 12b.
+Spatial (row) sharding, the serving latency axis: :func:`make_mesh_2d`
+lays the processes out as ``(data, space)``, :func:`shard_images` gives a
+process its batch rows and its image rows (:func:`image_sharding`'s
+``(Shard(0), Shard(1))`` on NHWC) and :func:`gather_images` joins them;
+inside :func:`image_rows` the flagship path (``UnetConvNext``, the blur
+degrade, the samplers) runs on each process's row block, its row-coupled
+ops exchanging halos and sums over the space axis (``spatial``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,13 +41,13 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from . import spatial
+
 __all__ = ["make_mesh", "make_mesh_2d", "shard_batch", "gather_rows", "replicate",
            "all_reduce_mean", "data_sharding", "replicated_sharding", "fsdp_sharding",
            "shard_state", "put_like", "shard_like", "full_state_dict", "is_sharded",
-           "image_sharding", "shard_images", "batch_rows", "local_rows", "draw_rows"]
-
-_ITEM_12B = ("spatial (row) sharding is not ported to colddiff_torch; see ROADMAP.md "
-             "section 1, item 12b")
+           "image_sharding", "shard_images", "gather_images", "image_rows", "batch_rows",
+           "local_rows", "draw_rows"]
 _BUCKET_BYTES = 64 << 20  # one collective moves at most this many bytes
 
 # (rank, world) of the batch rows that draws keep, set by batch_rows
@@ -61,16 +66,59 @@ def make_mesh(device_type: str = "cuda", axis_name: str = "data"):
                             mesh_dim_names=(axis_name,))
 
 
-def make_mesh_2d(*args, **kwargs):
-    raise NotImplementedError(f"make_mesh_2d: {_ITEM_12B}")
+def make_mesh_2d(data: int, space: int, device_type: str = "cuda",
+                 axis_names=("data", "space")):
+    """A 2-D ``DeviceMesh`` ``(data, space)`` over the process group: rank r
+    sits at ``(r // space, r % space)``, the order of JAX's
+    ``devices.reshape(data, space)``.  The ``space`` axis shards image rows,
+    so a low-batch sampling run can use more processes than it has images."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh_2d spans the process group: call "
+                           "colddiff_torch.parallel.init_multihost first")
+    world = dist.get_world_size()
+    if data < 1 or space < 1 or data * space != world:
+        raise ValueError(f"mesh {data}x{space} needs {data * space} processes, have {world}")
+    return init_device_mesh(device_type, (data, space), mesh_dim_names=tuple(axis_names))
 
 
-def image_sharding(*args, **kwargs):
-    raise NotImplementedError(f"image_sharding: {_ITEM_12B}")
+def image_sharding(mesh) -> tuple:
+    """The placements of an NHWC batch on a :func:`make_mesh_2d` mesh: the
+    batch over its first axis, the image rows over its second (JAX's
+    ``P('data', 'space')``)."""
+    del mesh
+    return (Shard(0), Shard(1))
 
 
-def shard_images(*args, **kwargs):
-    raise NotImplementedError(f"shard_images: {_ITEM_12B}")
+def _axes(mesh):
+    data, space = mesh.mesh_dim_names
+    return mesh[data], mesh[space]
+
+
+def shard_images(batch, mesh):
+    """This process's block of an NHWC batch (a tensor or an array) that
+    every process holds whole: its rows of the batch on the data axis and
+    its rows of each image on the space axis, contiguous and in rank
+    order, as :func:`image_sharding` places them."""
+    data, space = _axes(mesh)
+    n, hgt = batch.shape[0], batch.shape[1]
+    if n % data.size():
+        raise ValueError(f"a batch of {n} images does not divide over the {data.size()} "
+                         "processes of the data axis")
+    if hgt % space.size():
+        raise ValueError(f"images of {hgt} rows do not divide over the {space.size()} "
+                         "processes of the space axis")
+    b, h = n // data.size(), hgt // space.size()
+    d, s = data.get_local_rank(), space.get_local_rank()
+    return batch[d * b:(d + 1) * b, s * h:(s + 1) * h]
+
+
+def gather_images(local, mesh) -> torch.Tensor:
+    """The processes' blocks of :func:`shard_images` joined again: the whole
+    NHWC batch, on every process (the twin of :func:`gather_rows`)."""
+    data, space = _axes(mesh)
+    return gather_rows(gather_rows(local, space, dim=1), data, dim=0)
 
 
 def data_sharding(mesh, batch_dim: int = 0) -> tuple:
@@ -292,6 +340,30 @@ def batch_rows(rank: int, world: int):
         _ROWS.reset(token)
 
 
+@contextlib.contextmanager
+def image_rows(mesh):
+    """Inside, the NHWC images and activations that the model, the degrade
+    and the samplers see are this process's blocks of :func:`shard_images`:
+    draws keep this process's batch rows (:func:`batch_rows` on the data
+    axis) and image rows (:func:`draw_rows`), and the row-coupled ops
+    exchange over the space axis (``spatial``).  A space axis of one
+    process runs every op as outside."""
+    data, space = _axes(mesh)
+    rows = None
+    if space.size() > 1:
+        group = space.get_group()
+        rows = spatial.Rows(group, space.get_local_rank(), space.size())
+        if dist.get_rank(group) != rows.index:
+            raise RuntimeError(f"space axis place {rows.index} is rank "
+                               f"{dist.get_rank(group)} of its group")
+    with batch_rows(data.get_local_rank(), data.size()):
+        token = spatial._SPACE.set(rows)
+        try:
+            yield
+        finally:
+            spatial._SPACE.reset(token)
+
+
 def local_rows(n: int) -> slice:
     """The place of this process's ``n`` rows in the global batch: rows [r n,
     (r + 1) n) of rank r inside :func:`batch_rows`, else [0, n)."""
@@ -301,12 +373,19 @@ def local_rows(n: int) -> slice:
     return slice(here[0] * n, (here[0] + 1) * n)
 
 
-def draw_rows(draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
+def draw_rows(draw: Callable[..., torch.Tensor], n: int, h: Optional[int] = None
+              ) -> torch.Tensor:
     """``draw(n)``, a random tensor of ``n`` rows; inside :func:`batch_rows`,
     this process's rows of ``draw(n * world)``, the draw of the global batch
-    that every process makes alike from its generator."""
+    that every process makes alike from its generator.
+
+    With ``h``, the draw is of NHWC images of ``h`` rows: ``draw(n, h)``;
+    inside a row-sharded :func:`image_rows`, this process's block of
+    ``draw(n * world, h * space)``, the draw of the whole images."""
     here = _ROWS.get()
-    if here is None:
-        return draw(n)
-    rank, world = here
-    return draw(n * world)[rank * n:(rank + 1) * n]
+    rank, world = here if here is not None else (0, 1)
+    if h is None:
+        return draw(n) if here is None else draw(n * world)[rank * n:(rank + 1) * n]
+    rows = spatial.current()
+    out = draw(n * world, h * (1 if rows is None else rows.size))
+    return spatial.local(out[rank * n:(rank + 1) * n], 1)

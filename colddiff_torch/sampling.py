@@ -30,7 +30,9 @@ against (defading_diffusion_naive.py:451-456).
 
 Inside ``parallel.batch_rows`` (the mesh ``EvalHarness``), the reverse
 step's draws (``recon_noise_std``'s noise, a drawn endpoint) are the global
-batch's, and this process keeps its rows.
+batch's, and this process keeps its rows; inside ``parallel.image_rows``
+the samplers run on this process's block of the image rows, and
+``recon_noise_std``'s noise is drawn for the whole images.
 """
 
 from __future__ import annotations
@@ -110,8 +112,9 @@ def _reverse_step(diffusion: ColdDiffusion, img: torch.Tensor, t_cur: int,
         # snowification diffusion.py:222-225: perturb the reconstruction
         # before re-degrading; snow still blends from the clean x0_hat
         base = x0_hat + diffusion.recon_noise_std * draw_rows(
-            lambda n: torch.randn((n, *x0_hat.shape[1:]), generator=generator,
-                                  dtype=x0_hat.dtype, device=x0_hat.device), x0_hat.shape[0])
+            lambda n, h: torch.randn((n, h, *x0_hat.shape[2:]), generator=generator,
+                                     dtype=x0_hat.dtype, device=x0_hat.device),
+            x0_hat.shape[0], h=x0_hat.shape[1])
     return (img - op.degrade(base, n_t, og=x0_hat)
             + op.degrade(base, n_tm1, og=x0_hat)), x0_hat
 

@@ -521,6 +521,69 @@ def test_two_process_gloo_step_on_the_card_equals_one(cuda):
 
 
 @pytest.mark.cuda
+def test_two_process_row_sharded_dryrun_on_the_card(cuda):
+    """dryrun_multichip's spatial block on a (1, 2) mesh of two processes
+    sharing the card over gloo: the halo'd fronts through the kernel against
+    the whole-image kernel, the forward and the samples against one process
+    (its tiny check, 2e-5), and 9 front launches a forward on each process."""
+    from colddiff_torch.scripts import dryrun_multichip
+
+    res = dryrun_multichip.run(2, "cuda", space=2)
+    assert res["backend"] == "gloo" and res["device"] == "cuda" and res["mesh"] == [1, 2]
+    assert res["launches"] == [9 * 4] * 2 and res["samples_max_err"] <= 2e-5
+
+
+def _halo_front_rank(rank, port, out):
+    """One of two processes: the flagship's distinct block fronts on its
+    row half, against the whole-image kernel (dryrun_multichip.spatial_fronts)."""
+    import torch.distributed as dist
+
+    from colddiff_torch import parallel
+    from colddiff_torch.scripts.dryrun_multichip import front_shapes, spatial_fronts
+
+    dev = parallel.init_multihost(f"localhost:{port}", 2, rank, device="cuda", backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = list(dict.fromkeys(front_shapes(
+        UnetConvNext(dim=64, dim_mults=(1, 2, 4, 8)).to(dev), 128, dev)))
+    rows = spatial_fronts(shapes, 2, parallel.make_mesh_2d(1, 2, "cuda"), dev)
+    if rank == 0:
+        torch.save(rows, out)
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_halo_front_matches_whole_image_kernel_at_each_flagship_c(cuda, tmp_path):
+    """Every distinct front of the flagship UNet (C = 3 to 1024, 16 to 128
+    px) on row halves of two processes: the kernel on the block extended by
+    3 rows of its neighbour equals the whole-image kernel's rows (fp32
+    1e-4, bf16 2e-2), and the exchange sends 3 rows each way."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "fronts.pt"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_halo_front_rank, args=(r, port, str(out))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    rows = torch.load(out)
+    assert {r["shape"][3] for r in rows} == {3, 64, 128, 256, 512, 1024}
+    for r in rows:
+        assert r["max_abs_err_fp32"] <= 1e-4 and r["max_abs_err_bf16"] <= 2e-2, r
+        b, h, w, c = r["shape"]
+        assert r["exchanged"] == [["halo", [b, c, 6, w]]], r
+
+
+@pytest.mark.cuda
 def test_front_refuses_a_dtensor_weight(cuda):
     """A sharded weight never reaches the kernel: the wrapper raises rather
     than read the local shard's storage."""

@@ -293,12 +293,46 @@ def test_shard_batch_and_batch_rows():
     assert torch.equal(parallel.draw_rows(draw(gen), 2), draw(ref)(2))
 
 
-def test_spatial_sharding_raises_naming_item_12b():
-    for fn in (parallel.make_mesh_2d, parallel.image_sharding, parallel.shard_images):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            fn(1, 2)
+class _Mesh2D:
+    """What ``shard_images`` and ``image_rows`` read of a 2-D DeviceMesh."""
+
+    mesh_dim_names = ("data", "space")
+
+    def __init__(self, place, shape):
+        self.axes = {name: _Mesh(r, n) for name, r, n in zip(self.mesh_dim_names, place, shape)}
+
+    def __getitem__(self, name):
+        return self.axes[name]
+
+
+def test_spatial_sharding_functions_and_their_wrong_arguments():
+    """make_mesh_2d needs the group; image_sharding places batch and rows;
+    shard_images cuts a process's block and refuses sizes its mesh does not
+    divide; image_rows on a space axis of one sets the batch rows alone.
+    (Row-sharded runs on a group: tests/test_torch_spatial.py.)"""
+    from torch.distributed.tensor import Shard
+
+    from colddiff_torch.parallel import spatial
+
+    with pytest.raises(RuntimeError, match="init_multihost"):
+        parallel.make_mesh_2d(1, 2, "cpu")
     with pytest.raises(RuntimeError, match="init_multihost"):
         parallel.make_mesh("cpu")
+    assert parallel.image_sharding(None) == (Shard(0), Shard(1))
+    x = torch.arange(4 * 6 * 2 * 3).reshape(4, 6, 2, 3)
+    for d in range(2):
+        for r in range(3):
+            block = parallel.shard_images(x, _Mesh2D((d, r), (2, 3)))
+            assert torch.equal(block, x[2 * d:2 * d + 2, 2 * r:2 * r + 2])
+    np.testing.assert_array_equal(parallel.shard_images(x.numpy(), _Mesh2D((1, 0), (4, 2))),
+                                  x[1:2, :3])
+    with pytest.raises(ValueError, match="batch of 4 images does not divide over the 3"):
+        parallel.shard_images(x, _Mesh2D((0, 0), (3, 1)))
+    with pytest.raises(ValueError, match="6 rows do not divide over the 4 processes"):
+        parallel.shard_images(x, _Mesh2D((0, 0), (1, 4)))
+    with parallel.image_rows(_Mesh2D((1, 0), (2, 1))):
+        assert spatial.current() is None and parallel.local_rows(3) == slice(3, 6)
+    assert parallel.local_rows(3) == slice(0, 3)
 
 
 # ---------------------------------------------------------------------- #

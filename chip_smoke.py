@@ -161,6 +161,30 @@ checks it, in phases:
      ``image_rows`` bitwise equal to the run without a group (cuDNN held
      to its deterministic algorithms: its fp32 transposed conv is not
      bitwise repeatable from call to call otherwise).
+ 28. row sharding on every other workflow: ``dryrun_multichip.run(2,
+     flagship=True, space=2, workflows=...)``, two processes sharing the
+     card over gloo on a (1, 2) mesh, B=2: (a) each of phases 11-20's
+     workflows at its published size with the flagship UNet (fade T=100,
+     resolution Incremental_factor_2 T=4, decolor T=20 with ``to_lab`` off
+     and on, fade_generation T=750 x0_step_down and ddim, noise ddim and
+     x0_step_down, mix, snow level 4 random_snow with and without
+     recon_noise_std 0.01, all at 128 px; Random_Incremental fade and
+     fade_naive Spiral_2 fix and rand at 32 px): the degrade at T in fp32,
+     gathered, against one process (relative to max |y|, <= 1e-5), the
+     random draws (endpoints, crops, snow fields) equal to one process's,
+     an fp32 forward (rel L2 <= 1e-3, the collectives by kind) and a bf16
+     prepare_start + sample from level min(T, 8) (rel L2 <= 2e-2) against
+     one process, 17 front launches a forward on each process; (b) phase
+     21's CIFAR-10 ResNet (blur Special_6_routine T=50, 32 px): the fp32
+     forward (rel L2 <= 1e-3; halos, sums and row gathers), an fp32 T=50
+     sample of 2 (<= 1e-3) and a bf16 one (<= 2e-2, or twice the rel L2
+     between one process's run of the 2 images as one batch and one at a
+     time where that is more: bf16 rounding alone moves this sample ~4e-2)
+     against one process, no front launch; (c) the
+     flagship's fp32 loss (phase 8's configuration, t given, cuDNN
+     deterministic) against one process (rtol 1e-5) and its gradients
+     summed over the two processes (rel L2 <= 1e-3).  Each row's wall
+     seconds a process beside one process's.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -173,7 +197,7 @@ output byte written once at 3.35 TB/s, and each tap as one fp32 FMA
 
 Any failure raises and the script exits non-zero; without a CUDA device it
 exits non-zero at once.  The line before the last is a JSON summary of the
-kernels, after phase 27's launch counts; the last line is ``{"ok": true,
+kernels, after phases 27 and 28's launch counts; the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -1784,6 +1808,56 @@ def spatial_path(device, card: str) -> dict:
     return row
 
 
+# every workflow of the dry run but phase 27's flagship block
+SPACE_WORKFLOWS = tuple(w for w in dryrun_multichip.WORKFLOW_NAMES if w != "blur")
+
+
+def spatial_workflows(card: str) -> dict:
+    """Phase 28, as the module docstring says.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        weights = f"{folder}/flagship.pt"
+        torch.save(seeded_unet(SEED, "cpu", **FLAGSHIP).state_dict(), weights)
+        t0 = time.perf_counter()
+        res = dryrun_multichip.run(SPACE, "cuda", flagship=True, weights=weights, space=SPACE,
+                                   workflows=SPACE_WORKFLOWS)["workflow_checks"]
+        dry_s = time.perf_counter() - t0
+    flows = res["workflows"]
+    resnet = flows["resnet"]["rows"][0]
+    if not (res["backend"] == "gloo" and res["mesh"] == [1, SPACE]
+            and set(flows) == set(SPACE_WORKFLOWS) - {"loss"}
+            and set(resnet["collectives_by_kind"]) == {"halo", "sum", "rows"}):
+        raise AssertionError(f"phase 28: backend {res['backend']}, mesh {res['mesh']}, "
+                             f"workflows {sorted(flows)}, ResNet collectives "
+                             f"{resnet['collectives_by_kind']}")
+    # check_workflows held the tolerances and the launches (17 x depth a
+    # process on the UnetConvNext, 0 on the ResNet); this logs them
+    for name, w in flows.items():
+        for r in w["rows"]:
+            log(f"[28] {'(b)' if name == 'resnet' else '(a)'} {name} {r['routine']}"
+                + (f" recon_noise_std {r['recon_noise_std']}" if r["recon_noise_std"] else "")
+                + f" T={w['T']} {w['size']}px B={dryrun_multichip.FLAGSHIP.space_batch} on "
+                f"{SPACE} row blocks: degrade at T rel err {w['degrade_rel_err']:.3e} "
+                f"(<= {dryrun_multichip.DEGRADE_REL}), draws equal {w['draws_equal']}; fp32 "
+                f"forward rel L2 {r['forward_rel_l2']:.3e} {r['collectives_by_kind']}; "
+                f"{r['dtype']} sample from level {r['depth']} rel L2 "
+                f"{r['samples_rel_l2']:.3e} (<= {r['samples_bound']:.3e}"
+                + (f"; one process an image at a time: {r['split_rel_l2']:.3e}"
+                   if "split_rel_l2" in r else "") + "); front "
+                f"launches per process {r['launches']} (one process {r['launches_1']}); wall "
+                f"s per process {r['seconds']} vs one process {r['seconds_1']:.3f}")
+    loss = res["loss"]
+    log(f"[28] (c) flagship fp32 loss on {SPACE} row blocks {loss['loss']:.7f} vs one process "
+        f"{loss['loss_1']:.7f} (rtol {dryrun_multichip.LOSS_RTOL}); group-summed gradients "
+        f"rel L2 {loss['grad_rel_l2']:.3e} (<= {dryrun_multichip.GRAD_REL_L2}); "
+        f"{loss['collectives_by_kind']}")
+    row = dict(phase="28", dryrun=res, dryrun_seconds=dry_s,
+               phase_seconds=time.perf_counter() - t_phase)
+    log(f"[28] {dry_s:.2f} s with the processes' start-up; phase seconds "
+        f"{row['phase_seconds']:.2f}; card: {card}")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -2086,6 +2160,11 @@ def main() -> int:
     space_row = spatial_path(dev, card)
     log("[27] " + json.dumps(space_row, default=float))
 
+    # 28. row sharding on the other workflows, the ResNet and the loss
+    reset_peak(dev)
+    flows_row = spatial_workflows(card)
+    log("[28] " + json.dumps(flows_row, default=float))
+
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16
         (the main path's dtype); max_abs_err is fp32, over its fronts."""
@@ -2125,6 +2204,9 @@ def main() -> int:
     } for r in probes]
     log(f"[27] front launches of the row-sharded T={T} sample, per process: "
         f"{space_row['dryrun']['launches']} (17 x {T}; one process {space_row['dryrun']['launches_1']})")
+    log("[28] front launches of the row-sharded samples, per process: " + ", ".join(
+        f"{name} {r['routine']} {r['launches']}"
+        for name, w in flows_row["dryrun"]["workflows"].items() for r in w["rows"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

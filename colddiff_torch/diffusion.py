@@ -18,6 +18,14 @@ noise from a ``torch.Generator`` (``loss`` hands down its own); a given
 ``noise`` replaces the draw, so the tests replay the JAX normals.  Inside
 ``parallel.batch_rows`` each batch-shaped draw (t, the noise) is made for
 the global batch, and this process keeps its rows.
+
+Inside a row-sharded ``parallel.image_rows`` the images are this process's
+row blocks: the losses' means, a ``Final_random_mean`` routine's channel
+means and ``Gradient_norm``'s norms are the whole images'
+(``spatial.group_mean``, ``spatial.group_sum``), and ``Final_small_noise``
+draws the whole images' normals and keeps its block.  Every process holds
+the same loss; each seeds it with 1, and the group's parameter gradients
+summed equal one process's (the convention of ``spatial.group_mean``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from .operators.base import Degradation
 from .ops.image import quantize_uint8
+from .parallel import spatial
 from .parallel.mesh import draw_rows
 
 __all__ = ["ColdDiffusion", "DenoiseFn", "X0_ROUTINES"]
@@ -74,6 +83,8 @@ class ColdDiffusion:
         return torch.where(clean, x_start, y)
 
     def loss_func(self, pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+        if spatial.current() is not None:
+            return self._rows_loss(pred - true)
         if self.loss_type == "l1":
             return (pred - true).abs().mean()
         if self.loss_type == "l2":
@@ -81,6 +92,15 @@ class ColdDiffusion:
         if self.loss_type == "sqrt":
             return (pred - true).abs().mean().sqrt()
         raise NotImplementedError(self.loss_type)
+
+    def _rows_loss(self, diff: torch.Tensor) -> torch.Tensor:
+        """:meth:`loss_func` of a row block's ``pred - true``: the whole
+        images' mean, the same on every process."""
+        if self.loss_type not in ("l1", "l2", "sqrt"):
+            raise NotImplementedError(self.loss_type)
+        err = diff.square() if self.loss_type == "l2" else diff.abs()
+        mean = spatial.group_mean(err, range(err.dim()), loss=True).reshape(())
+        return mean.sqrt() if self.loss_type == "sqrt" else mean
 
     def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
                  t: torch.Tensor, *, x_end: Optional[torch.Tensor] = None,
@@ -97,7 +117,7 @@ class ColdDiffusion:
                 # resolution_diffusion_pytorch.py:671-676; the noisy image is
                 # also the target
                 x_start = x_start + 0.001 * self._normal(noise, x_start.shape, x_start,
-                                                         generator)
+                                                         generator, image=True)
             mean_shape = (x_start.shape[0], 1, 1, x_start.shape[-1])
             if routine == "Final_random_mean":
                 x_start = self._randomize_mean(
@@ -123,15 +143,19 @@ class ColdDiffusion:
             # predict the unit degradation direction
             # (resolution_diffusion_pytorch.py:734-748)
             grad = x_t - x_start
-            norm = grad.reshape(grad.shape[0], -1).norm(dim=1)
+            if spatial.current() is None:
+                norm = grad.reshape(grad.shape[0], -1).norm(dim=1)
+            else:  # the whole images' norms
+                norm = spatial.group_sum(grad.square().reshape(grad.shape[0], -1).sum(1)).sqrt()
             grad_n = grad / (norm.reshape(-1, 1, 1, 1) + 1e-5)
             return self.loss_func(denoise_fn(x_t, t), grad_n)
         raise NotImplementedError(routine)
 
     def _normal(self, noise: Optional[torch.Tensor], shape, x: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator], image: bool = False) -> torch.Tensor:
         """``noise``, or a standard normal of ``shape`` in ``x``'s dtype
-        drawn from ``generator``."""
+        drawn from ``generator``; with ``image`` the shape is NHWC images',
+        drawn whole (``draw_rows(h=)``) inside ``parallel.image_rows``."""
         if noise is not None:
             if tuple(noise.shape) != tuple(shape):
                 raise ValueError(f"train routine '{self.train_routine}' takes noise of "
@@ -140,6 +164,10 @@ class ColdDiffusion:
         if generator is None:
             raise ValueError(f"train routine '{self.train_routine}' draws noise: it "
                              "needs a torch.Generator or the noise itself")
+        if image:
+            return draw_rows(lambda n, h: torch.randn((n, h, *shape[2:]), generator=generator,
+                                                      dtype=x.dtype, device=x.device),
+                             shape[0], h=shape[1])
         return draw_rows(lambda n: torch.randn((n, *shape[1:]), generator=generator,
                                                dtype=x.dtype, device=x.device), shape[0])
 
@@ -147,7 +175,7 @@ class ColdDiffusion:
     def _randomize_mean(x: torch.Tensor, new_mean: torch.Tensor) -> torch.Tensor:
         """Replace each image's per-channel spatial mean with ``new_mean``
         [B, 1, 1, C] (resolution_diffusion_pytorch.py:681-690)."""
-        return x - x.mean(dim=(1, 2), keepdim=True) + new_mean
+        return x - spatial.group_mean(x, (1, 2)) + new_mean
 
     def loss(self, denoise_fn: DenoiseFn, x_start: torch.Tensor,
              generator: Optional[torch.Generator], *,

@@ -8,11 +8,13 @@ state dict loads with ``load_state_dict`` and no conversion.  The ResNet
 layers are stock torch ops: the JAX package computes them outside any
 Pallas kernel.
 
-Inside ``parallel.image_rows`` the ConvNeXt pieces run on this process's
-block of the image rows: the front and the 3x3, Downsample and Upsample
-convs take halos (``RowConv2d``, ``RowConvTranspose2d``), the linear
-attention's token softmax and context sum over the space group, and the
-per-pixel pieces stay local.
+Inside ``parallel.image_rows`` both families' pieces run on this
+process's block of the image rows: the front and the 3x3, Downsample and
+Upsample convs take halos (``RowConv2d``, ``RowConvTranspose2d``), the
+linear attention's token softmax and context sum over the space group, the
+GroupNorm's statistics are the group's, the softmax attention's keys and
+values are gathered, dropout keeps its rows of the whole images' mask, and
+the per-pixel pieces stay local.
 """
 
 from __future__ import annotations
@@ -243,8 +245,20 @@ def group_norm_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     :32-33, nonlinearity :27-29), in the JAX package's order: statistics in
     at least fp32, the normalized value cast to ``x``'s dtype, then
     ``* gamma + beta`` in that dtype (``F.group_norm``'s own affine would
-    run before the cast)."""
-    xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
+    run before the cast).
+
+    Inside a row-sharded ``parallel.image_rows`` the (C/G, H, W) statistics
+    are the whole images': the mean, then the mean of the squared
+    deviations from it (what ``jnp.var`` computes), two group means and so
+    two all-reduces a norm; ``F.group_norm`` takes no outside statistics,
+    so the block is normalized explicitly."""
+    if spatial.current() is None:
+        xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
+    else:
+        xg = x.to(_stat_dtype(x)).unflatten(1, (num_groups, -1))  # [B, G, C/G, h, W]
+        dev = xg - spatial.group_mean(xg, (2, 3, 4))
+        var = spatial.group_mean(dev.square(), (2, 3, 4))
+        xn = (dev * torch.rsqrt(var + eps)).flatten(1, 2).to(x.dtype)
     xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
     return F.silu(xn) if swish else xn
 
@@ -269,7 +283,12 @@ class SoftmaxAttention(nn.Module):
     As in the JAX package: the q.k logits in the activation dtype, cast to
     at least fp32, scaled by C^-0.5, a softmax over the keys, the weights
     cast back to q's dtype.  The keys are the last axis of the logits (a
-    softmax over a strided axis is slow on the card: PERF.md)."""
+    softmax over a strided axis is slow on the card: PERF.md).
+
+    Inside a row-sharded ``parallel.image_rows`` the queries stay this
+    process's and the keys and values are gathered (one ``spatial.gather``
+    of their [B, h*W, 2C] tokens), so the softmax runs over all H*W keys
+    and each query row's arithmetic is one process's."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -287,6 +306,8 @@ class SoftmaxAttention(nn.Module):
             return conv(h).permute(0, 2, 3, 1).reshape(b, hgt * wid, c)
 
         q, k, v = tokens(self.q), tokens(self.k), tokens(self.v)
+        if spatial.current() is not None:
+            k, v = spatial.gather(torch.cat([k, v], dim=-1), 1).split(c, dim=-1)
         w = torch.bmm(q, k.transpose(1, 2)).to(_stat_dtype(q)) * (c ** -0.5)
         w = torch.softmax(w, dim=-1).to(q.dtype)
         out = torch.bmm(w, v).reshape(b, hgt, wid, c).permute(0, 3, 1, 2)
@@ -298,7 +319,21 @@ def _keep_mask(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.T
     1 - p.  The draws take ``x``'s memory format, so the mask of a
     channels_last activation is channels_last too.  Under
     ``parallel.batch_rows`` the draw is the global batch's, made with
-    ``x``'s strides, so each process keeps the 1-process mask's rows."""
+    ``x``'s strides, so each process keeps the 1-process mask's rows.
+    Inside a row-sharded ``parallel.image_rows`` the draw is the whole
+    images' in ``x``'s memory format, and each process keeps its block's
+    rows of it."""
+    rows = spatial.current()
+    if rows is not None:
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+
+        def whole(n: int) -> torch.Tensor:
+            shape = (n, x.shape[1], x.shape[2] * rows.size, x.shape[3])
+            return torch.empty(shape, dtype=torch.float32, device=x.device,
+                               memory_format=fmt).uniform_(generator=generator)
+
+        return spatial.local(draw_rows(whole, x.shape[0]), 2) < 1.0 - p
 
     def draw(n: int) -> torch.Tensor:
         if n == x.shape[0]:  # one process: x's own layout, whatever its strides

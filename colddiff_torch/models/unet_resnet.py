@@ -15,6 +15,12 @@ draws its masks only from the ``generator`` passed to ``forward``
 (``layers.dropout``).  No hand-written kernel runs here: the JAX twin
 reaches no Pallas kernel.
 
+Inside ``parallel.image_rows`` the forward runs on this process's block of
+the image rows: the 3x3 convs take halos (``layers.RowConv2d``), the conv
+Downsample one row of the process below, the GroupNorm statistics and the
+attention's keys and values are the group's (``layers``), and the rest is
+row-local; H must divide by space * 2**(len(ch_mult) - 1).
+
 Canonical CIFAR-10 config (cifar10_train.py:71-78):
 ``UnetResNet(resolution=32, ch=128, ch_mult=(1,2,2,2), num_res_blocks=2,
 attn_resolutions=(16,), dropout=0.1)``.
@@ -30,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import spatial
-from .layers import FusedGroupNormSwish, SoftmaxAttention, dropout, swish
+from .layers import FusedGroupNormSwish, RowConv2d, SoftmaxAttention, dropout, swish
 
 __all__ = ["UnetResNet", "timestep_embedding"]
 
@@ -55,10 +61,10 @@ class ResnetBlock(nn.Module):
         super().__init__()
         self.p = p
         self.norm1 = FusedGroupNormSwish(in_ch)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = RowConv2d(in_ch, out_ch, 3, padding=1)
         self.temb_proj = nn.Linear(temb_ch, out_ch) if temb_ch is not None else None
         self.norm2 = FusedGroupNormSwish(out_ch)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = RowConv2d(out_ch, out_ch, 3, padding=1)
         self.nin_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
@@ -75,24 +81,28 @@ class ResnetBlock(nn.Module):
 
 class _Downsample(nn.Module):
     """A (0, 1) bottom/right pad and a VALID stride-2 3x3 conv, or 2x2
-    average pooling (Model2.py:54-73)."""
+    average pooling (Model2.py:54-73).  Under row sharding the bottom pad
+    is a halo of one row of the process below (zeros at the image's bottom
+    edge: the pad itself); the pooling is row-local, h being even."""
 
     def __init__(self, ch: int, with_conv: bool):
         super().__init__()
         self.conv = nn.Conv2d(ch, ch, 3, stride=2) if with_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.conv is not None:
+        if self.conv is None:
+            return F.avg_pool2d(x, 2, 2)
+        if spatial.current() is None:
             return self.conv(F.pad(x, (0, 1, 0, 1)))
-        return F.avg_pool2d(x, 2, 2)
+        return self.conv(F.pad(spatial.halo(x, 0, 1, 2), (0, 1)))
 
 
 class _Upsample(nn.Module):
-    """Nearest x2, then a 3x3 conv (Model2.py:36-51)."""
+    """Nearest x2 (row-local), then a 3x3 conv (Model2.py:36-51)."""
 
     def __init__(self, ch: int, with_conv: bool):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1) if with_conv else None
+        self.conv = RowConv2d(ch, ch, 3, padding=1) if with_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -124,7 +134,7 @@ class UnetResNet(nn.Module):
             self.temb = nn.Module()
             self.temb.dense = nn.ModuleList([nn.Linear(ch, temb_ch),
                                              nn.Linear(temb_ch, temb_ch)])
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.conv_in = RowConv2d(in_channels, ch, 3, padding=1)
 
         num_res = len(ch_mult)
         in_mult = (1,) + tuple(ch_mult)
@@ -167,16 +177,19 @@ class UnetResNet(nn.Module):
         self.up = nn.ModuleList(ups)
 
         self.norm_out = FusedGroupNormSwish(block_in)
-        self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
+        self.conv_out = RowConv2d(block_in, out_ch, 3, padding=1)
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, H, W, C] images at ``resolution``; t: [B] integer levels.
         ``generator`` draws the dropout masks in training mode.  Returns NHWC."""
-        spatial.refuse("UnetResNet (GroupNorm statistics, softmax attention)")
-        if not x.shape[1] == x.shape[2] == self.resolution:
+        rows = spatial.current()
+        hgt = x.shape[1] * (1 if rows is None else rows.size)
+        if not hgt == x.shape[2] == self.resolution:
             raise ValueError(f"UnetResNet(resolution={self.resolution}) got images of "
-                             f"{tuple(x.shape[1:3])}")
+                             f"{(hgt, x.shape[2])}")
+        spatial.check_height(x.shape[1], 2 ** (len(self.down) - 1),
+                             f"UnetResNet with {len(self.down) - 1} downsamples")
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         temb = None
         if self.with_time_emb and t is not None:

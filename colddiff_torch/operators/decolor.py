@@ -8,6 +8,10 @@ Each step is a CxC channel matrix, so the cumulative products ``[T+1, C, C]``
 are built once on the host and ``degrade`` is one batched fp32 product
 (exact: consecutive lab2rgb/rgb2lab round trips of the per-step chain
 cancel).
+
+The mix, the Lab round trip and ``total`` are per pixel, so inside a
+row-sharded ``parallel.image_rows`` they run on this process's rows as
+they are.
 """
 
 from __future__ import annotations
@@ -17,7 +21,6 @@ import torch
 
 from ..ops.image import lab2rgb, rgb2lab
 from ..ops.linop import cumulative_matrices, require_ieee_fp32
-from ..parallel import spatial
 from ..schedules import decolor_routine_thetas
 from .base import Degradation, bcast, table_device
 
@@ -62,7 +65,6 @@ class Decolorization(Degradation):
         return torch.einsum("bij,bhwj->bhwi", m, x.to(torch.float32))
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         n = self._levels(n, self.cum.device)
         m = self.cum[n]  # [B, C, C]
         if self.to_lab:

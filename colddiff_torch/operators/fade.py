@@ -13,6 +13,11 @@ Where the offsets come from (fade.py:87-103): the ``rng`` state given to
 ``degrade`` (one loss's draw, :meth:`sample_rng_state`), else the offsets
 baked by :meth:`randomize` / :meth:`reset` for a whole sampling run, else
 zeros.
+
+Inside a row-sharded ``parallel.image_rows`` a process multiplies its
+block by its rows of the mask: the stack's rows (``spatial.local``), or,
+for ``Random_Incremental``, the rows ``off + index * h + [0, h)`` of the
+2S grid, the crop offsets staying the whole batch's draw.
 """
 
 from __future__ import annotations
@@ -103,7 +108,6 @@ class Fade(Degradation):
         return self.randomize(generator, batch_size)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         dev = self.cum_masks.device
         m = self.cum_masks[self._levels(n, dev)]  # [B, grid, grid]
         if self.random:
@@ -117,9 +121,14 @@ class Fade(Degradation):
             # clamped into [0, S], so the gather stays inside the 2S grid
             # (lax.dynamic_slice clamps starts past S the same way)
             off = torch.as_tensor(off, dtype=torch.long, device=dev).clamp(0, s)
-            # m[b, o_b0 + i, o_b1 + j] for i, j < S: one gather for the batch
+            # m[b, o_b0 + i, o_b1 + j] for i, j < S: one gather for the batch;
+            # a row block takes its rows i of the crop
             span = torch.arange(s, device=dev)
-            rows = (off[:, 0, None] + span)[:, :, None]  # [B, S, 1]
+            here = spatial.current()
+            first = 0 if here is None else here.index * x.shape[1]
+            rows = (off[:, 0, None] + span[first:first + x.shape[1]])[:, :, None]  # [B, h, 1]
             cols = (off[:, 1, None] + span)[:, None, :]  # [B, 1, S]
             m = m[torch.arange(b, device=dev)[:, None, None], rows, cols]
+        else:
+            m = spatial.local(m, 1)
         return x * m[..., None]

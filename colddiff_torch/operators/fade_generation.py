@@ -7,6 +7,10 @@ and ``q_sample`` interpolates ``alpha_t * x0 + (1 - alpha_t) * x_end``
 (:543-548) toward a random constant-color image (:769-774); ``reverse``
 flips the schedule, and its alphas are the complement of the reversed
 pre-products (:371-380), so level T is pure x_end.
+
+Inside a row-sharded ``parallel.image_rows`` the degrade and
+``x_end_from_xt`` take this process's rows of ``alphas[idx]``
+(``spatial.local``); the endpoint is a constant per image.
 """
 
 from __future__ import annotations
@@ -66,10 +70,9 @@ class FadeGeneration(Degradation):
     def _alpha(self, n) -> tuple[torch.Tensor, torch.Tensor]:
         n = self._levels(n, self.alphas.device)
         idx = torch.clamp(n - 1, 0, self.timesteps - 1)
-        return n, self.alphas[idx][..., None]  # [B, S, S, 1]
+        return n, spatial.local(self.alphas[idx], 1)[..., None]  # [B, S or h, S, 1]
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         if x_end is None:
             raise ValueError("FadeGeneration.degrade needs x_end (draw it with "
                              "sample_x_end)")

@@ -12,6 +12,10 @@ fades toward a constant color (an endpoint, as in Family B): after n steps
 Where the JAX ``degrade`` draws the Spiral_2 endpoint from a key it is
 given, the port's caller draws it with :meth:`sample_x_end` and passes
 ``x_end``, as the Trainer and the samplers do.
+
+Inside a row-sharded ``parallel.image_rows`` a process takes its rows of
+a spiral mask (``spatial.local``); the scalar factors and the Spiral_2
+endpoint, a constant per image, need nothing.
 """
 
 from __future__ import annotations
@@ -87,9 +91,10 @@ class FadeNaive(Degradation):
                    fade_routine=fade_routine, image_size=image_size)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         n = self._levels(n, self.cum.device)
         f = self.cum[n][..., None]  # [B, 1 or S, 1 or S, 1]
+        if f.shape[1] > 1:
+            f = spatial.local(f, 1)
         y = x * f
         if self.requires_x_end and x_end is not None:
             y = y + (1.0 - f) * x_end

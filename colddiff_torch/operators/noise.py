@@ -7,14 +7,15 @@ cosine-schedule interpolation
 ``x_end`` comes from -- N(0, I) noise for the hot baseline, an image from a
 second dataset for demixing/animorphosis (demixing_diffusion_pytorch.py:
 331-337, 497-502).  The Trainer supplies ``x_end``; the operator is
-elementwise math on two [T] tables.
+elementwise math on two [T] tables, so inside a row-sharded
+``parallel.image_rows`` it runs on this process's rows as it is, and
+``GaussianNoise`` draws the whole images' endpoint and keeps its block.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..parallel import spatial
 from ..parallel.mesh import draw_rows
 from ..schedules import cosine_alphas_cumprod
 from .base import Degradation, bcast, table_device
@@ -49,7 +50,6 @@ class Interpolation(Degradation):
         return n, bcast(self.sqrt_ac[idx], ndim), bcast(self.sqrt_1mac[idx], ndim)
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         if x_end is None:
             raise ValueError(f"{type(self).__name__}.degrade needs x_end, the endpoint image")
         n, a, b = self._coefs(n, x.dim())
@@ -62,7 +62,6 @@ class Interpolation(Degradation):
             r      = sqrt_ac[n1-1] / sqrt_ac[n0-1]
             x_{n1} = r * x + (sqrt_1mac[n1-1] - r * sqrt_1mac[n0-1]) * x_end
         """
-        spatial.refuse(f"{type(self).__name__}.degrade_range")
         n0, n1 = int(n0), int(n1)
         if not 0 <= n0 <= n1 <= self.timesteps:
             raise ValueError(f"invalid range [{n0}, {n1}] for T={self.timesteps}")
@@ -88,10 +87,16 @@ class GaussianNoise(Interpolation):
     """Hot baseline: x_end ~ N(0, I) (denoising_diffusion_pytorch.py:738-742)."""
 
     def sample_x_end(self, generator, x):
-        return draw_rows(lambda n: torch.randn((n, *x.shape[1:]), generator=generator,
-                                               dtype=x.dtype, device=x.device), x.shape[0])
+        """The normals of the whole images, as JAX draws ``x.shape``; inside
+        ``parallel.image_rows`` this process's rows of the batch's draw
+        and its block of each image's rows (``draw_rows(h=)``)."""
+        return draw_rows(lambda n, h: torch.randn((n, h, *x.shape[2:]), generator=generator,
+                                                  dtype=x.dtype, device=x.device),
+                         x.shape[0], h=x.shape[1])
 
 
 class Animorphosis(Interpolation):
     """Demixing: x_end is an image from a second dataset, so
-    ``sample_x_end`` gives None and the Trainer's ``second_dataset`` feeds it."""
+    ``sample_x_end`` gives None and the Trainer's ``second_dataset`` feeds it.
+    Under row sharding the caller places those images as it places ``x``
+    (``parallel.shard_images``)."""

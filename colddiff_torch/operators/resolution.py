@@ -7,6 +7,10 @@ sigma=0.5 reflect blurs (resolution_diffusion_pytorch.py:354-414).
 ``F.interpolate`` is separable and linear, so a step is a pair of [S, S]
 matrices (the copied ``linop.resize_step_matrix``) and ``degrade`` is a
 gather of the cumulative products plus two batched fp32 matmuls.
+
+Inside a row-sharded ``parallel.image_rows`` the degrade runs on this
+process's rows (``linop.apply_rowcol`` gathers the rows for the row
+product).
 """
 
 from __future__ import annotations
@@ -15,7 +19,6 @@ import numpy as np
 import torch
 
 from ..ops import linop
-from ..parallel import spatial
 from ..schedules import gaussian_kernel_1d, resolution_routine_sizes
 from .base import Degradation, table_device
 
@@ -54,5 +57,4 @@ class Resolution(Degradation):
                    cum=torch.as_tensor(linop.cumulative_matrices(mats), device=device))
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         return linop.apply_separable(x, self.cum, self._levels(n, self.cum.device))

@@ -12,9 +12,11 @@ batched einsums on the table device in true fp32.
 The degrade is a pure function of the original image ``og``
 (forward_process_impl.py:357-372): ``clip(brightness(og) + snow[i] +
 snow_rot[i], 0, 1)``, so per-sample gathers from the [T, L, S, S] stacks
-are exact.  The fields are the operator's tensors, so the Trainer's
-checkpoint keeps them (the reference writes ``snow_base.npy``,
-diffusion.py:177-193).
+are exact; inside a row-sharded ``parallel.image_rows`` a process takes
+its rows of the gathered fields (the fields, drawn from a seed on the
+host, are the same on every process).  The fields are the operator's
+tensors, so the Trainer's checkpoint keeps them (the reference writes
+``snow_base.npy``, diffusion.py:177-193).
 """
 
 from __future__ import annotations
@@ -162,7 +164,6 @@ class Snow(Degradation):
         return new
 
     def degrade(self, x, n, *, x_end=None, og=None, rng=None):
-        spatial.refuse(f"{type(self).__name__}.degrade")
         if og is None:
             og = x
         dev = self.snow.device
@@ -171,8 +172,8 @@ class Snow(Degradation):
         # the fields are the global batch's; a process reads its rows' layers
         here = local_rows(x.shape[0])
         lidx = torch.arange(here.start, here.stop, device=dev) % self.snow.shape[1]
-        sn = self.snow[idx, lidx][..., None]  # [B, H, W, 1]
-        sn_rot = self.snow_rot[idx, lidx][..., None]
+        sn = spatial.local(self.snow[idx, lidx], 1)[..., None]  # [B, H or h, W, 1]
+        sn_rot = spatial.local(self.snow_rot[idx, lidx], 1)[..., None]
         og_r = (og + 1.0) * 0.5
         if self.fix_brightness:
             base = og_r

@@ -24,9 +24,10 @@ Spatial (row) sharding, the serving latency axis: :func:`make_mesh_2d`
 lays the processes out as ``(data, space)``, :func:`shard_images` gives a
 process its batch rows and its image rows (:func:`image_sharding`'s
 ``(Shard(0), Shard(1))`` on NHWC) and :func:`gather_images` joins them;
-inside :func:`image_rows` the flagship path (``UnetConvNext``, the blur
-degrade, the samplers) runs on each process's row block, its row-coupled
-ops exchanging halos and sums over the space axis (``spatial``).
+inside :func:`image_rows` both UNet families, the nine operators' degrades,
+the samplers and ``ColdDiffusion``'s losses run on each process's row
+block, their row-coupled ops exchanging halos and sums over the space axis
+(``spatial``).
 """
 
 from __future__ import annotations

@@ -19,9 +19,16 @@ exchange, inside ``parallel.image_rows`` (which sets :func:`current`):
     halo it needs (colddiff/ops/pallas/convnext_front.py:295-299), and the
     degrade's row product;
   - :func:`group_sum`, :func:`group_max` and :func:`group_mean` reduce
-    over the group;
+    over the group (the GroupNorm statistics, the token softmax, the
+    losses' whole-image means);
   - :func:`conv2d` and :func:`conv_transpose2d` run a zero-padded
     convolution on a halo'd block.
+
+Callers: the ConvNeXt and ResNet UNets' convs, fronts, attentions and
+norms (``models/layers.py``, ``models/unet_resnet.py``), the degrades of
+the nine operators (``ops/linop.py`` and ``operators/``: per-pixel tables
+cut to this process's rows with :func:`local`) and ``ColdDiffusion``'s
+losses.
 
 Every exchange is an ``all_gather`` or ``all_reduce`` of a contiguous slab
 on the space group, which gloo takes with CUDA tensors as NCCL does (gloo's
@@ -48,11 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["Rows", "current", "collectives", "halo", "gather", "local", "group_sum",
-           "group_max", "group_mean", "conv2d", "conv_transpose2d", "check_height",
-           "refuse"]
-
-ITEM_12C = ("under row sharding (parallel.image_rows) only blur with UnetConvNext is "
-            "ported; see ROADMAP.md section 1, item 12c")
+           "group_max", "group_mean", "conv2d", "conv_transpose2d", "check_height"]
 
 collectives: Counter = Counter()
 
@@ -186,7 +189,10 @@ class _Gather(torch.autograd.Function):
 def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The group's row blocks along ``dim`` joined in order: the whole rows,
     on every process; differentiable (each process's gradient is the sum
-    of the group's on its rows)."""
+    of the group's on its rows).  Tokens ``[B, h*W, C]`` of a block join
+    along ``dim=1`` in the whole image's token order: rows are the slow
+    axis of the h*W, so block r's tokens are the whole image's [r h W,
+    (r + 1) h W)."""
     rows = current()
     return x if rows is None else _Gather.apply(x, dim, rows)
 
@@ -224,13 +230,41 @@ def group_max(x: torch.Tensor) -> torch.Tensor:
     return x if rows is None else _all_reduce(x.detach(), dist.ReduceOp.MAX, "max", rows)
 
 
-def group_mean(x: torch.Tensor, dim: Sequence[int]) -> torch.Tensor:
+class _SeededSum(torch.autograd.Function):
+    """The group sum of a value that every process then holds and seeds
+    alike: its backward passes the upstream gradient on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, rows: Rows):
+        return _all_reduce(x, dist.ReduceOp.SUM, "sum", rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def group_mean(x: torch.Tensor, dim: Sequence[int], *, loss: bool = False) -> torch.Tensor:
     """``x.mean(dim, keepdim=True)`` over the whole images, where ``dim``
     holds the row axis: the group's block means, averaged (the blocks are
-    of one size)."""
+    of one size).
+
+    The gradient's scale.  Autograd through these exchanges differentiates
+    the sum, over the group, of what each process seeds: a group sum's
+    backward sums the upstream gradients, right for a mean that flows on
+    into each process's block (a norm's statistics, blur's collapse), where
+    each process's upstream gradient is its block's part.  A loss is not
+    such a part: every process holds the same value and seeds it with 1,
+    and summing those seeds would make every gradient S times the
+    loss's.  So ``loss=True`` passes the upstream gradient on unsummed:
+    each process's parameter gradients are then its block's part of the
+    loss's, and their sum over the group equals one process's gradients
+    on the whole images."""
     rows = current()
     mean = x.mean(dim=tuple(dim), keepdim=True)
-    return mean if rows is None else group_sum(mean) / rows.size
+    if rows is None:
+        return mean
+    total = _SeededSum.apply(mean, rows) if loss else group_sum(mean)
+    return total / rows.size
 
 
 def _rows_only(conv: nn.Module) -> None:
@@ -287,8 +321,3 @@ def check_height(h: int, multiple: int, what: str) -> None:
         raise ValueError(f"{what} under row sharding needs H divisible by space * "
                          f"{multiple} = {rows.size * multiple}, got H = {h * rows.size}")
 
-
-def refuse(what: str) -> None:
-    """Raise NotImplementedError naming item 12c inside a row-sharded context."""
-    if current() is not None:
-        raise NotImplementedError(f"{what}: {ITEM_12C}")

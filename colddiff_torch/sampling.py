@@ -31,8 +31,10 @@ against (defading_diffusion_naive.py:451-456).
 Inside ``parallel.batch_rows`` (the mesh ``EvalHarness``), the reverse
 step's draws (``recon_noise_std``'s noise, a drawn endpoint) are the global
 batch's, and this process keeps its rows; inside ``parallel.image_rows``
-the samplers run on this process's block of the image rows, and
-``recon_noise_std``'s noise is drawn for the whole images.
+the samplers run on this process's block of the image rows, with every
+operator and both UNet families, and ``recon_noise_std``'s noise and a
+drawn endpoint are the whole images' draws; ``all_sample``'s frames are
+row blocks, which ``parallel.gather_images`` joins frame by frame.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Data-parallel and row-sharded dry runs over N processes, checked against one process.
 
     python -m colddiff_torch.scripts.dryrun_multichip --n N --device {cuda,cpu} [--flagship]
-        [--space S]
+        [--space S [--workflow NAME ...]]
 
 The torch twin of ``__graft_entry__.dryrun_multichip`` (``:28-180``).  It
 starts N processes joined by
@@ -53,7 +53,24 @@ The gathered (``gather_images``) forward and samples are held against
 this process's whole-image run: the tiny configuration (one image a data
 index) at 2e-5, ``--flagship`` (two, the latency case of fewer images than
 processes) at a relative L2 of 1e-3 for the fp32 forward and 2e-2, the
-port's bf16 tolerance, for the samples.  The last line is the result.
+port's bf16 tolerance, for the samples.
+
+``--workflow NAME ...`` (with ``--space``; default ``blur``, the block
+above) runs the reference's other workflows row-sharded instead, on a
+``(1, S)`` mesh, at chip_smoke.py's phases 11-21 settings with
+``--flagship`` (the tiny run: 16 px, the tiny UNets): ``fade``,
+``resolution``, ``decolor``, ``decolor_lab``, ``fade_generation``,
+``noise``, ``mix``, ``snow``, ``fade_naive``, ``fade_random`` and
+``resnet`` (CIFAR-10 deblurring with the ResNet UNet).  Each holds against
+one process: the degrade at T in fp32 (relative to max |y|, 1e-5), its
+random draws (endpoints, crops, snow fields) equal, and for each routine
+(b) the fp32 forward at the start, with the collectives it made by kind,
+and (c) prepare_start + sample from level min(T, 8) (the ResNet's from T),
+timed, with its front launches, at (b) and (c)'s tolerances.  ``loss``
+holds the UNet's fp32 ``ColdDiffusion.loss`` (t given, cuDNN
+deterministic) against one process at rtol 1e-5 and its gradients, summed
+over the space axis, at a relative L2 of 1e-3.  The last line is the
+result.
 """
 
 from __future__ import annotations
@@ -73,8 +90,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Config", "TINY", "FLAGSHIP", "process_checks", "check", "front_shapes",
-           "spatial_fronts", "spatial_checks", "check_spatial", "run", "main"]
+__all__ = ["Config", "TINY", "FLAGSHIP", "Workflow", "WORKFLOWS", "WORKFLOW_NAMES",
+           "process_checks", "check", "front_shapes", "spatial_fronts", "spatial_checks",
+           "check_spatial", "workflow_checks", "check_workflows", "run", "main"]
 
 @dataclasses.dataclass(frozen=True)
 class Config:
@@ -407,8 +425,358 @@ def check_spatial(got: dict, cfg: Config, dev: torch.device, weights: Optional[s
     return res
 
 
+@dataclasses.dataclass(frozen=True)
+class Workflow:
+    """One of the reference's workflows (chip_smoke.py phases 11-21) under
+    row sharding: the operator ``op`` built with ``cfg`` (and the image
+    size where it takes one), its sampling ``routines`` and
+    ``recon_noise`` settings, its image ``size`` at full width, where its
+    endpoint comes from (``"drawn"``: ``op.sample_x_end``; ``"second"``: a
+    second seeded image set; None), and whether it runs the ResNet UNet
+    (whose bf16 run samples in fp32 too)."""
+
+    op: str
+    cfg: dict
+    routines: tuple = ("x0_step_down",)
+    size: int = 128
+    end: Optional[str] = None
+    recon_noise: tuple = (0.0,)
+    resnet: bool = False
+
+
+WORKFLOWS = {
+    "fade": Workflow("fade", dict(timesteps=100, fade_routine="Incremental", kernel_std=0.2)),
+    "resolution": Workflow("resolution", dict(timesteps=4,
+                                              resolution_routine="Incremental_factor_2")),
+    "decolor": Workflow("decolor", dict(timesteps=20, decolor_routine="Linear",
+                                        decolor_total_remove=True)),
+    "decolor_lab": Workflow("decolor", dict(timesteps=20, decolor_routine="Linear",
+                                            decolor_total_remove=True, to_lab=True)),
+    "fade_generation": Workflow("fade_generation", dict(timesteps=750, reverse=True,
+                                                        kernel_std=0.05),
+                                ("x0_step_down", "ddim"), end="drawn"),
+    "noise": Workflow("noise", dict(timesteps=200), ("ddim", "x0_step_down"), end="drawn"),
+    "mix": Workflow("mix", dict(timesteps=200), end="second"),
+    "snow": Workflow("snow", dict(timesteps=200, snow_level=4, random_snow=True,
+                                  fix_brightness=True, seed=0), recon_noise=(0.0, 0.01)),
+    "fade_naive": Workflow("fade_naive", dict(timesteps=50, fade_routine="Spiral_2"),
+                           ("x0_step_down_spiral_2_fix", "x0_step_down_spiral_2_rand"), 32,
+                           end="drawn"),
+    "fade_random": Workflow("fade", dict(timesteps=50, fade_routine="Random_Incremental",
+                                         kernel_std=0.1, initial_mask=1), size=32),
+    "resnet": Workflow("blur", dict(timesteps=50, blur_routine="Special_6_routine",
+                                    kernel_size=11), size=32, resnet=True),
+}
+# "blur" is the flagship's spatial block above; "loss" the flagship's loss
+# and its gradients
+WORKFLOW_NAMES = ("blur", *WORKFLOWS, "loss")
+SAMPLE_DEPTH = 8  # a workflow's sample starts at level min(T, 8); the ResNet's at T
+DEGRADE_REL = 1e-5  # a row-sharded degrade against one process, relative to max |y|
+RESNET_TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+                   resolution=16)
+LOSS_RTOL = 1e-5  # the flagship loss (fp32) against one process
+GRAD_REL_L2 = 1e-3  # its group-summed gradients against one process's
+
+
+def _workflow_size(wf: Workflow, cfg: Config) -> int:
+    return wf.size if cfg == FLAGSHIP else cfg.size
+
+
+def _workflow_model(wf: Workflow, cfg: Config, weights: Optional[str]):
+    """The workflow's UNet: the dry run's UnetConvNext, or the CIFAR-10
+    ResNet of ``get_model`` (the tiny run: a 16 px one), from seed 0."""
+    if not wf.resnet:
+        return _model(cfg, weights)
+    from ..models import UnetResNet, get_model
+
+    torch.manual_seed(0)
+    if cfg == FLAGSHIP:
+        return get_model("UnetResNet", dataset="cifar10")
+    return UnetResNet(**RESNET_TINY)
+
+
+def _workflow_diffusion(wf: Workflow, cfg: Config, device, routine: str,
+                        recon_noise_std: float, batch: int):
+    from ..diffusion import ColdDiffusion
+    from ..operators import get_operator
+
+    size = _workflow_size(wf, cfg)
+    kw = dict(wf.cfg)
+    if wf.op not in ("decolor", "noise", "mix"):
+        kw["image_size"] = size
+    if wf.op == "snow":
+        kw["batch_size"] = batch
+    op = get_operator(wf.op, **kw, device=device)
+    if wf.op == "fade" and op.random:
+        # the crops baked for the run: the whole batch's, the same on every process
+        op = op.randomize(torch.Generator(device=device).manual_seed(17), batch)
+    return ColdDiffusion(op=op, image_size=size, sampling_routine=routine,
+                         recon_noise_std=recon_noise_std)
+
+
+def _workflow_images(wf: Workflow, cfg: Config, n: int, device) -> tuple:
+    """The clean batch (Lab for ``decolor_lab``) and the endpoint of a
+    ``second``-set workflow, whole, from seeds."""
+    from ..data import SyntheticDataset
+    from ..ops.image import rgb2lab
+
+    size = _workflow_size(wf, cfg)
+    gen = torch.Generator().manual_seed(19)
+    img = (torch.rand(n, size, size, 3, generator=gen) * 2 - 1).to(device)
+    if wf.cfg.get("to_lab"):
+        img = rgb2lab(img)
+    second = None
+    if wf.end == "second":
+        data = SyntheticDataset(size, 3, length=n, seed=11)
+        second = torch.stack([torch.from_numpy(data[i]) for i in range(n)]).to(device)
+    return img, second
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _kinds(counts: Counter) -> dict:
+    by_kind = Counter()
+    for (kind, _), count in counts.items():
+        by_kind[kind] += count
+    return dict(by_kind)
+
+
+def _workflow_run(name: str, cfg: Config, model, dev, n: int, place=None) -> dict:
+    """One workflow on this process: whole images (``place`` None) or,
+    inside ``image_rows``, this process's blocks (``place`` gives
+    ``(shard, gather)``): the degrade at T in fp32, the random draws, and
+    for each routine the fp32 forward at the start (with its collectives),
+    then a bf16 (for the flagship; for its ResNet fp32 too) prepare_start
+    + sample from level ``min(T, SAMPLE_DEPTH)`` (T for the
+    ResNet), timed, with its front launches.  On whole images of more than
+    one, the ResNet's samples are also run an image at a time (``split``):
+    how far the rounding of another batch shape moves them."""
+    from ..ops.convnext_front import convnext_front
+    from ..parallel import spatial
+    from ..sampling import prepare_start, sample
+
+    wf = WORKFLOWS[name]
+    shard, whole = place or ((lambda a: a), (lambda a: a))
+    img, second = _workflow_images(wf, cfg, n, dev)
+    og = shard(img)
+    d = _workflow_diffusion(wf, cfg, dev, wf.routines[0], 0.0, n)
+    op, steps = d.op, d.num_timesteps
+    gen = torch.Generator(device=dev).manual_seed(23)
+    res = dict(name=name, T=steps, size=_workflow_size(wf, cfg), rows=[], draws={})
+    x_end = None
+    if wf.end == "drawn":
+        x_end = op.sample_x_end(gen, og)
+        res["draws"]["x_end"] = whole(x_end).cpu()
+    elif wf.end == "second":
+        x_end = shard(second)
+    if wf.op == "fade" and op.random:
+        res["draws"]["offsets"] = op.offsets.cpu()
+    if wf.op == "snow":
+        fresh = op.reset(torch.Generator(device=dev).manual_seed(29), n)
+        res["draws"]["fields"] = [_digest(fresh.snow), _digest(fresh.snow_rot)]
+    with torch.inference_mode():
+        res["degrade"] = whole(op.degrade(og, torch.full((og.shape[0],), steps, device=dev),
+                                          x_end=x_end, og=og)).cpu()
+    depth = steps if wf.resnet else min(steps, SAMPLE_DEPTH)
+    denoisers = {"fp32": model}
+    if cfg.bf16:
+        denoisers = {"bf16": _bf16_denoise(model), **(denoisers if wf.resnet else {})}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def run(d, denoise, og, x_end):
+        return sample(d, denoise, prepare_start(d, og, depth, x_end=x_end), depth, x_end=x_end,
+                      generator=torch.Generator(device=dev).manual_seed(37)).img
+
+    for routine in wf.routines:
+        for recon in wf.recon_noise:
+            d = _workflow_diffusion(wf, cfg, dev, routine, recon, n)
+            with torch.inference_mode():
+                start = prepare_start(d, og, depth, x_end=x_end)
+                spatial.collectives.clear()
+                level = torch.full((og.shape[0],), depth - 1, dtype=torch.long, device=dev)
+                forward = whole(model(start, level)).cpu()
+                kinds = _kinds(spatial.collectives)
+            for dtype, denoise in denoisers.items():
+                row = dict(routine=routine, recon_noise_std=recon, depth=depth, dtype=dtype,
+                           forward=forward, collectives_by_kind=kinds)
+                with torch.inference_mode():
+                    sample(d, denoise, start, 1, x_end=x_end,
+                           generator=torch.Generator(device=dev).manual_seed(31))  # warm-up
+                    sync()
+                    convnext_front.launches = 0
+                    t0 = time.perf_counter()
+                    out = run(d, denoise, og, x_end)
+                    sync()
+                    row["seconds"] = time.perf_counter() - t0
+                    row["launches"] = convnext_front.launches
+                    if place is None and n > 1 and wf.resnet:
+                        row["split"] = torch.cat([run(d, denoise, og[i:i + 1], None if x_end
+                                                      is None else x_end[i:i + 1])
+                                                  for i in range(n)]).cpu()
+                row["samples"] = whole(out).cpu()
+                res["rows"].append(row)
+    return res
+
+
+def _loss_run(cfg: Config, dev, weights: Optional[str], n: int, place=None) -> dict:
+    """The dry run's UnetConvNext in fp32 through ``ColdDiffusion.loss``
+    (Final, l1, the blur of the configuration) with t given, cuDNN held to
+    its deterministic algorithms: the loss and its gradients (flat; inside
+    ``image_rows`` summed over the space axis, ``place`` giving ``(shard,
+    space group)``)."""
+    import torch.distributed as dist
+
+    from ..parallel import spatial
+
+    shard, group = place or ((lambda a: a), None)
+    model = _model(cfg, weights).to(dev)
+    gen = torch.Generator().manual_seed(41)
+    x = (torch.rand(n, cfg.size, cfg.size, 3, generator=gen) * 2 - 1).to(dev)
+    t = torch.randint(0, cfg.timesteps, (n,), generator=gen).to(dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        spatial.collectives.clear()
+        loss = _diffusion(cfg, dev).loss(model, shard(x), None, t=t)
+        loss.backward()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    if group is not None:
+        dist.all_reduce(grads, group=group)
+    return dict(loss=loss.item(), grads=grads.cpu(),
+                collectives_by_kind=_kinds(spatial.collectives))
+
+
+def workflow_checks(cfg: Config, mesh, weights: Optional[str], names) -> dict:
+    """The row-sharded side of each workflow in ``names`` (of
+    :data:`WORKFLOWS`, and ``"loss"``) on this process of a ``(1, S)``
+    ``make_mesh_2d`` mesh, at ``cfg.space_batch`` images; returns what
+    :func:`check_workflows` needs (gathered, the same on every process,
+    with each process's seconds and front launches)."""
+    import torch.distributed as dist
+
+    from ..parallel import gather_images, image_rows, local_device, shard_images
+
+    data, space = mesh["data"], mesh["space"]
+    if data.size() != 1:
+        raise ValueError("the workflows run on a (1, S) mesh: one data index")
+    dev = local_device(mesh.device_type, dist.get_rank())
+    n = cfg.space_batch
+    place = (lambda a: shard_images(a, mesh), lambda a: gather_images(a, mesh))
+    out = dict(n=dist.get_world_size(), mesh=[data.size(), space.size()], device=dev.type,
+               backend=dist.get_backend(space.get_group()), workflows={})
+    models = {}
+    for name in names:
+        if name == "loss":
+            with image_rows(mesh):
+                out["loss"] = _loss_run(cfg, dev, weights, n,
+                                        (place[0], space.get_group()))
+            continue
+        wf = WORKFLOWS[name]
+        if wf.resnet not in models:
+            models[wf.resnet] = _workflow_model(wf, cfg, weights).to(dev).eval()
+        with image_rows(mesh):
+            res = _workflow_run(name, cfg, models[wf.resnet], dev, n, place)
+        for row in res["rows"]:
+            row["seconds"] = _per_process(row["seconds"], dev)
+            row["launches"] = [int(v) for v in _per_process(row["launches"], dev)]
+        out["workflows"][name] = res
+    return out
+
+
+def check_workflows(got: dict, cfg: Config, dev: torch.device, weights: Optional[str],
+                    names) -> dict:
+    """Run each workflow of ``names`` on one process on the whole images and
+    hold ``got`` (rank 0's :func:`workflow_checks`) against it: the degrade
+    at T (relative to max |y|, <= 1e-5), the fp32 forward (tiny: allclose
+    2e-5; flagship and the ResNet: rel L2 <= 1e-3) and the samples (tiny:
+    2e-5; flagship and the ResNet: rel L2 <= 1e-3 in fp32, and in bf16 <=
+    2e-2, for the ResNet's T=50 sample or twice its ``split`` one where
+    more: bf16 rounding alone, one process's same images run an image at a
+    time, moves it by ~4e-2), the draws equal, the front launches (17 a forward of
+    the UnetConvNext, 0 of the ResNet, on the card); the loss (rtol 1e-5)
+    and its group-summed gradients (rel L2 <= 1e-3).  Returns the summary
+    (raises if a check does not hold)."""
+    flagship = cfg == FLAGSHIP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = cfg.space_batch
+    summary = {k: got[k] for k in ("n", "mesh", "device", "backend")}
+    summary["workflows"] = {}
+    models = {}
+    bad = []
+    for name in names:
+        if name == "loss":
+            one = _loss_run(cfg, dev, weights, n)
+            mine = got["loss"]
+            row = dict(loss=mine["loss"], loss_1=one["loss"],
+                       grad_rel_l2=_rel_l2(mine["grads"], one["grads"]),
+                       collectives_by_kind=mine["collectives_by_kind"])
+            if not (math.isclose(mine["loss"], one["loss"], rel_tol=LOSS_RTOL)
+                    and row["grad_rel_l2"] <= GRAD_REL_L2):
+                bad.append(f"loss: {row}")
+            summary["loss"] = row
+            continue
+        wf = WORKFLOWS[name]
+        if wf.resnet not in models:
+            models[wf.resnet] = _workflow_model(wf, cfg, weights).to(dev).eval()
+        one = _workflow_run(name, cfg, models[wf.resnet], dev, n)
+        mine = got["workflows"][name]
+        deg = ((mine["degrade"] - one["degrade"]).abs().max()
+               / one["degrade"].abs().max()).item()
+        draws = {k: (torch.equal(v, one["draws"][k]) if torch.is_tensor(v)
+                     else v == one["draws"][k]) for k, v in mine["draws"].items()}
+        wsum = dict(T=one["T"], size=one["size"], degrade_rel_err=deg, draws_equal=draws,
+                    rows=[])
+        if not (deg <= DEGRADE_REL and all(draws.values())):
+            bad.append(f"{name}: degrade rel err {deg}, draws equal {draws}")
+        fronts = 0 if wf.resnet or dev.type != "cuda" else 17
+        for r, r1 in zip(mine["rows"], one["rows"]):
+            row = dict(routine=r["routine"], recon_noise_std=r["recon_noise_std"],
+                       depth=r["depth"], dtype=r["dtype"], seconds=r["seconds"],
+                       seconds_1=r1["seconds"],
+                       launches=r["launches"], launches_1=r1["launches"],
+                       collectives_by_kind=r["collectives_by_kind"],
+                       forward_rel_l2=_rel_l2(r["forward"], r1["forward"]),
+                       samples_rel_l2=_rel_l2(r["samples"], r1["samples"]),
+                       forward_max_err=(r["forward"] - r1["forward"]).abs().max().item(),
+                       samples_max_err=(r["samples"] - r1["samples"]).abs().max().item())
+            if "split" in r1:
+                row["split_rel_l2"] = _rel_l2(r1["split"], r1["samples"])
+            if flagship or wf.resnet:
+                # the tiny ResNet too: its GroupNorms see the blurred start
+                # nearly flat, a variance near their eps that scales the
+                # statistics' fp32 rounding up (relative L2 ~6e-5 on the CPU)
+                row["samples_bound"] = (FLAGSHIP.forward_tol if r["dtype"] == "fp32" else max(
+                    FLAGSHIP.samples_tol, 2 * row.get("split_rel_l2", 0.0)))
+                ok = (row["forward_rel_l2"] <= FLAGSHIP.forward_tol
+                      and row["samples_rel_l2"] <= row["samples_bound"])
+            else:
+                ok = (torch.allclose(r["forward"], r1["forward"], rtol=cfg.forward_tol,
+                                     atol=cfg.forward_tol)
+                      and torch.allclose(r["samples"], r1["samples"], rtol=cfg.samples_tol,
+                                         atol=cfg.samples_tol))
+            want = fronts * r["depth"]
+            if not (ok and r["launches"] == [want] * got["n"] and r1["launches"] == want):
+                bad.append(f"{name} {row}: expected {want} front launches a process")
+            if not all(torch.isfinite(t).all() for t in (r["samples"], r["forward"])):
+                bad.append(f"{name} {r['routine']}: not finite")
+            wsum["rows"].append(row)
+        summary["workflows"][name] = wsum
+    if bad:
+        raise AssertionError("workflows under row sharding: " + "; ".join(bad)
+                             + "\nsummary: " + json.dumps(summary, default=float))
+    return summary
+
+
 def _process(rank: int, n: int, port: int, device: str, flagship: bool,
-             weights: Optional[str], out: str, space: Optional[int]) -> None:
+             weights: Optional[str], out: str, space: Optional[int],
+             workflows=("blur",)) -> None:
     """One process of the run; rank 0 saves what the check needs to ``out``."""
     os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
     if device == "cpu":
@@ -422,7 +790,11 @@ def _process(rank: int, n: int, port: int, device: str, flagship: bool,
     torch.backends.cudnn.allow_tf32 = False
     cfg = FLAGSHIP if flagship else TINY
     if space:
-        result = spatial_checks(cfg, make_mesh_2d(n // space, space, dev.type), weights)
+        mesh = make_mesh_2d(n // space, space, dev.type)
+        result = spatial_checks(cfg, mesh, weights) if "blur" in workflows else {}
+        others = [w for w in workflows if w != "blur"]
+        if others:
+            result["workflow_checks"] = workflow_checks(cfg, mesh, weights, others)
     else:
         with tempfile.TemporaryDirectory() as folder:
             result = process_checks(cfg, make_mesh(dev.type), weights, folder)
@@ -444,17 +816,24 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def run(n: int, device: str = "cuda", flagship: bool = False,
         weights: Optional[str] = None, timeout: float = 600.0,
-        space: Optional[int] = None) -> dict:
+        space: Optional[int] = None, workflows=("blur",)) -> dict:
     """The dry run; returns its result (raises if a process fails or a check
     does not hold).  ``weights``: a state dict file the model starts from
     (default: torch's init under seed 0).  ``space``: the spatial block on
-    ``make_mesh_2d(n // space, space)`` instead."""
+    ``make_mesh_2d(n // space, space)`` instead, for each of ``workflows``
+    (:data:`WORKFLOW_NAMES`; "blur" is the flagship's block, the others run
+    on a ``(1, space)`` mesh)."""
     import torch.multiprocessing as mp
 
     from ..parallel import local_device
 
     if space is not None and (space < 1 or n % space):
         raise ValueError(f"--space {space} does not divide --n {n}")
+    workflows = tuple(workflows)
+    unknown = set(workflows) - set(WORKFLOW_NAMES)
+    if unknown or not workflows or (workflows != ("blur",) and not space):
+        raise ValueError(f"workflows {workflows}: each one of {WORKFLOW_NAMES}, "
+                         "and other than blur only with --space")
     dev = local_device(device, 0)
     cfg = FLAGSHIP if flagship else TINY
     ctx = mp.get_context("spawn")
@@ -462,7 +841,8 @@ def run(n: int, device: str = "cuda", flagship: bool = False,
         out = os.path.join(folder, "rank0.pt")
         port = _free_port()
         procs = [ctx.Process(target=_process,
-                             args=(r, n, port, dev.type, flagship, weights, out, space))
+                             args=(r, n, port, dev.type, flagship, weights, out, space,
+                                   workflows))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -478,7 +858,13 @@ def run(n: int, device: str = "cuda", flagship: bool = False,
         if codes != [0] * n:
             raise RuntimeError(f"dryrun_multichip: process exit codes {codes}")
         if space:
-            return check_spatial(torch.load(out), cfg, dev, weights)
+            got = torch.load(out)
+            res = check_spatial(got, cfg, dev, weights) if "blur" in workflows else {}
+            if "workflow_checks" in got:
+                res["workflow_checks"] = check_workflows(
+                    got["workflow_checks"], cfg, dev, weights,
+                    [w for w in workflows if w != "blur"])
+            return res
         return check(torch.load(out), cfg, dev, weights, folder)
 
 
@@ -543,8 +929,30 @@ def main(argv=None) -> dict:
     p.add_argument("--weights", default=None, help="a state dict file to start from")
     p.add_argument("--space", type=int, default=None,
                    help="the spatial block on a (n / space, space) mesh instead")
+    p.add_argument("--workflow", nargs="+", default=["blur"], choices=WORKFLOW_NAMES,
+                   metavar="NAME", help="with --space: the workflows to run row-sharded "
+                   f"(default blur, the flagship's block): {', '.join(WORKFLOW_NAMES)}")
     args = p.parse_args(argv)
-    res = run(args.n, args.device, args.flagship, args.weights, space=args.space)
+    res = run(args.n, args.device, args.flagship, args.weights, space=args.space,
+              workflows=args.workflow)
+    for name, w in res.get("workflow_checks", {}).get("workflows", {}).items():
+        for r in w["rows"]:
+            print(f"dryrun_multichip({args.n}, space {args.space}, {name} {r['routine']}"
+                  f"{' recon_noise_std %g' % r['recon_noise_std'] if r['recon_noise_std'] else ''}"
+                  f", T={w['T']} {w['size']}px): ok; degrade rel err "
+                  f"{w['degrade_rel_err']:.3e}, draws equal {w['draws_equal']}; forward rel L2 "
+                  f"{r['forward_rel_l2']:.3e} {r['collectives_by_kind']}; {r['dtype']} sample "
+                  f"from level {r['depth']} rel L2 {r['samples_rel_l2']:.3e}; front launches "
+                  f"per process {r['launches']}; s per process {r['seconds']} vs one process "
+                  f"{r['seconds_1']:.3f}", flush=True)
+    if "loss" in res.get("workflow_checks", {}):
+        r = res["workflow_checks"]["loss"]
+        print(f"dryrun_multichip({args.n}, space {args.space}, loss): ok; loss {r['loss']:.7f} "
+              f"vs one process {r['loss_1']:.7f}; group-summed gradients rel L2 "
+              f"{r['grad_rel_l2']:.3e}; {r['collectives_by_kind']}", flush=True)
+    if args.space and "blur" not in args.workflow:
+        print(json.dumps(res, default=float), file=sys.stderr)
+        return res
     if args.space:
         print(f"dryrun_multichip({args.n}, space {args.space}, {res['device']}, "
               f"{res['backend']}, {res['config']}): ok, mesh {res['mesh']}; fronts on row "

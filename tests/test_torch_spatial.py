@@ -46,13 +46,6 @@ S, B = 16, 2
 BLUR = dict(image_size=S, timesteps=4, blur_routine="Constant", kernel_size=3, kernel_std=1.0)
 # the front alone: (C, image side, mesh); 8 px on (1, 4) is 2 rows a process
 FRONTS = [(8, 16, m) for m in MESHES] + [(64, 16, m) for m in MESHES] + [(8, 8, (1, 4))]
-REFUSED = {
-    "noise": dict(timesteps=4), "mix": dict(timesteps=4), "decolor": dict(timesteps=4),
-    "fade": dict(image_size=S, timesteps=4), "fade_naive": dict(image_size=S, timesteps=4),
-    "fade_generation": dict(image_size=S, timesteps=4),
-    "resolution": dict(image_size=S, timesteps=4),
-    "snow": dict(image_size=S, timesteps=4, batch_size=B),
-}
 RECON_NOISE = 0.01
 
 
@@ -153,28 +146,22 @@ def _rank(rank, port, root, inputs):
             lambda n, h: torch.rand(n, h, 5, 3, generator=gen), 1, h=S // 2)
     got["draw_place"] = (mesh["data"].get_local_rank(), mesh["space"].get_local_rank())
 
-    # shard/gather, and the refusals, on (1, 4)
+    # shard/gather, and the wrong sizes, on (1, 4)
     mesh = meshes[(1, 4)]
     got["round_trip"] = parallel.gather_images(parallel.shard_images(x, mesh), mesh)
     errors = {}
     with parallel.image_rows(mesh):
-        for name, cfg in REFUSED.items():
-            op = get_operator(name, **cfg, device="cpu")
-            block = parallel.shard_images(x, mesh)
-            try:
-                op.degrade(block, n, x_end=block)
-            except NotImplementedError as e:
-                errors[name] = str(e)
+        # H = 12 rows: 3 a process, not divisible by the 2 of one downsample
+        twelve = parallel.shard_images(torch.zeros(1, 12, 12, 3), mesh)
         try:
-            UnetResNet(ch=32, ch_mult=(1,), num_res_blocks=1, attn_resolutions=(),
-                       resolution=S)(parallel.shard_images(x, mesh), n)
-        except NotImplementedError as e:
-            errors["UnetResNet"] = str(e)
-        try:  # H = 12 rows: 3 a process, not divisible by the 2 of one downsample
-            UnetConvNext(dim=8, dim_mults=(1, 2))(
-                parallel.shard_images(torch.zeros(1, 12, 12, 3), mesh), n[:1])
+            UnetConvNext(dim=8, dim_mults=(1, 2))(twelve, n[:1])
         except ValueError as e:
             errors["H"] = str(e)
+        try:
+            UnetResNet(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
+                       resolution=12)(twelve, n[:1])
+        except ValueError as e:
+            errors["H_resnet"] = str(e)
     for fn in (lambda: parallel.shard_images(torch.zeros(1, 14, 14, 3), mesh),
                lambda: parallel.make_mesh_2d(3, 2, "cpu")):
         try:
@@ -348,12 +335,12 @@ def test_group_of_one_is_bitwise_no_group_and_blocks_round_trip(group):
 
 
 def test_refusals_and_wrong_arguments(group):
-    """Inside a row-sharded context the eight other operators and the ResNet
-    raise naming item 12c; the H rule and wrong sizes raise ValueError."""
+    """Inside a row-sharded context both UNet families refuse an H whose
+    blocks do not halve at every downsample; wrong sizes raise ValueError."""
     errors = group[0]["errors"]
-    assert set(errors) == {*REFUSED, "UnetResNet", "H", "wrong"}
-    for name in (*REFUSED, "UnetResNet"):
-        assert "item 12c" in errors[name], (name, errors[name])
+    assert set(errors) == {"H", "H_resnet", "wrong"}
     assert "H divisible by space * 2 = 8, got H = 12" in errors["H"]
+    assert errors["H_resnet"].startswith("UnetResNet with 1 downsamples under row sharding")
+    assert "H divisible by space * 2 = 8, got H = 12" in errors["H_resnet"]
     assert "do not divide over the 4 processes of the space axis" in errors["wrong"][0]
     assert errors["wrong"][1] == "mesh 3x2 needs 6 processes, have 4"

@@ -185,6 +185,17 @@ checks it, in phases:
      deterministic) against one process (rtol 1e-5) and its gradients
      summed over the two processes (rel L2 <= 1e-3).  Each row's wall
      seconds a process beside one process's.
+ 29. the loaders' native helper (``colddiff_torch/data/native.py``, host
+     C++ built with g++ on the card's host): a fresh build timed; the
+     batches of the native path against its numpy path
+     (``COLDDIFF_NO_NATIVE``), at most float32's eps apart (one ulp of
+     1.0; the elements that differ counted): B=16 ``aug1`` crops of 160 px
+     PNGs at 128 px through ``ImageFolderDataset`` and B=32 CIFAR-10 pad-4
+     crops through ``ArrayDataset``; each path's median host ms a batch
+     over rounds that run the two in turns (the folder batch with and
+     without the PNG decode and resize); and phase
+     25's in-process ``test`` checked to have cropped through the native
+     helper.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -223,7 +234,8 @@ import torch.distributed
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from colddiff_torch.data import SyntheticDataset
+from colddiff_torch.data import ArrayDataset, ImageFolderDataset, SyntheticDataset
+from colddiff_torch.data import native
 from colddiff_torch.diffusion import ColdDiffusion
 from colddiff_torch.eval import EvalHarness, fit_gmm, metrics
 from colddiff_torch.eval import fid as fid_mod
@@ -287,6 +299,9 @@ PAR_STEPS = 3  # phase 26: timed Trainer steps a placement, after one warm-up
 PAR_LOSS_RTOL = 1e-3  # a step's loss against the one without a process group
 METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-5  # a mesh harness's metrics (tests/test_parallel.py)
 SPACE = 2  # phase 27: processes on the space axis, sharing the card
+NATIVE_FOLDER_B, NATIVE_CIFAR_B = 16, 32  # phase 29: a batch of each loader
+NATIVE_REPS = 20  # timed rounds of both paths in turns; each path's median is kept
+NATIVE_MAX_DIFF = float(np.finfo(np.float32).eps)  # v * (2/255) - 1 vs v / 255 * 2 - 1
 LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
 REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
@@ -1490,6 +1505,7 @@ def cli_path(device, card: str):
 
         base = reset_peak(device)
         zero_launches()
+        crops0 = native.calls["crop_flip_normalize"]
         t0 = time.perf_counter()
         EvalHarness.fid_distance_decrease_from_manifold = timed_manifold
         try:
@@ -1500,6 +1516,7 @@ def cli_path(device, card: str):
             EvalHarness.fid_distance_decrease_from_manifold = manifold
         torch.cuda.synchronize(device)
         test_s = time.perf_counter() - t0
+        row.update(test_native_crops=native.calls["crop_flip_normalize"] - crops0)
         launches = launch_counts()
         forwards = T * (CLI_TEST_END // BATCH)  # model_chunk 16: one forward a step
         if launches != (17 * forwards, forwards, 0):
@@ -1858,6 +1875,103 @@ def spatial_workflows(card: str) -> dict:
     return row
 
 
+def native_loader(card: str, cli_row: dict) -> dict:
+    """Phase 29: the loaders' native helper against its numpy path."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    if os.environ.get("COLDDIFF_NO_NATIVE"):
+        raise AssertionError("phase 29: COLDDIFF_NO_NATIVE is set, so the loaders ran numpy")
+    if cli_row["test_native_crops"] < CLI_TEST_END:
+        raise AssertionError(f"phase 25's test cropped {cli_row['test_native_crops']} images "
+                             f"through the native helper, expected >= {CLI_TEST_END}")
+    row = dict(phase="29", cli_test_native_crops=cli_row["test_native_crops"],
+               library=native.library_path().name)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        native.build(Path(tmp) / "fresh.so")
+        row.update(build_seconds=time.perf_counter() - t0)
+        folder = Path(tmp) / "png"
+        write_pngs(folder, NATIVE_FOLDER_B, CLI_SIDE, SEED + 29)
+        big = int(IMG * 1.12)
+        rng = np.random.default_rng(SEED + 29)
+        resized = [np.asarray(Image.open(p).resize((big, big), Image.BILINEAR))
+                   for p in sorted(folder.glob("*.png"))]
+        crops = [(int(rng.integers(0, big - IMG + 1)), int(rng.integers(0, big - IMG + 1)),
+                  bool(rng.random() < 0.5)) for _ in resized]
+        cifar = rng.integers(0, 256, (NATIVE_CIFAR_B, CIFAR, CIFAR, 3), dtype=np.uint8)
+
+        def folder_batch():
+            ds = ImageFolderDataset(str(folder), IMG, aug="aug1", seed=SEED)
+            return np.stack([ds[i] for i in range(NATIVE_FOLDER_B)])
+
+        def crop_batch():
+            return np.stack([native.crop_flip_normalize(a, y0, x0, IMG, flip)
+                             for a, (y0, x0, flip) in zip(resized, crops)])
+
+        def cifar_batch():
+            ds = ArrayDataset(cifar, aug="cifar", seed=SEED)
+            return np.stack([ds[i] for i in range(NATIVE_CIFAR_B)])
+
+        def use(path):
+            if path == "numpy":
+                os.environ["COLDDIFF_NO_NATIVE"] = "1"
+            else:
+                os.environ.pop("COLDDIFF_NO_NATIVE", None)
+            native.reset()
+            if (native.get_lib() is None) != (path == "numpy"):
+                raise AssertionError(f"phase 29: the {path} path did not take effect")
+
+        batches = (("folder", folder_batch), ("crop", crop_batch), ("cifar", cifar_batch))
+        out, times = {}, {}
+        try:
+            for path in ("native", "numpy"):
+                use(path)
+                calls0 = sum(native.calls.values())
+                out[path] = [fn() for _, fn in batches]
+                ran = sum(native.calls.values()) - calls0
+                want = NATIVE_FOLDER_B * 2 + NATIVE_CIFAR_B if path == "native" else 0
+                if ran != want:
+                    raise AssertionError(f"phase 29: the {path} path made {ran} native "
+                                         f"calls, expected {want}")
+            # the two paths in turns, each first in every other round
+            for rep in range(NATIVE_REPS):
+                for path in ("native", "numpy")[::1 if rep % 2 == 0 else -1]:
+                    use(path)
+                    for name, fn in batches:
+                        t0 = time.perf_counter()
+                        fn()
+                        times.setdefault((name, path), []).append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("COLDDIFF_NO_NATIVE", None)
+            native.reset()
+        for (name, path), ts in times.items():
+            row[f"{name}_ms_{path}"] = 1e3 * float(np.median(ts))
+    for name, a, b in zip(("folder", "crop", "cifar"), out["native"], out["numpy"]):
+        diff = np.abs(a.astype(np.float64) - b)
+        if not (a.shape == b.shape and a.dtype == b.dtype == np.float32
+                and diff.max() <= NATIVE_MAX_DIFF):
+            raise AssertionError(f"phase 29 {name}: native vs numpy {a.shape} {a.dtype} vs "
+                                 f"{b.shape} {b.dtype}, max |diff| {diff.max()} "
+                                 f"(<= {NATIVE_MAX_DIFF})")
+        row.update({f"{name}_max_abs_diff": float(diff.max()),
+                    f"{name}_elements_differing": int((diff > 0).sum()),
+                    f"{name}_elements": int(diff.size)})
+    row.update(phase_seconds=time.perf_counter() - t_phase)
+    log(f"[29] native loader helper ({row['library']}; a fresh g++ build "
+        f"{row['build_seconds']:.3f} s): B={NATIVE_FOLDER_B} aug1 {CLI_SIDE} px PNGs -> "
+        f"{IMG} px, a batch with decode and resize {row['folder_ms_native']:.3f} ms native vs "
+        f"{row['folder_ms_numpy']:.3f} ms numpy, the crops alone "
+        f"{row['crop_ms_native']:.3f} vs {row['crop_ms_numpy']:.3f} ms; B={NATIVE_CIFAR_B} "
+        f"CIFAR pad-4 crops {row['cifar_ms_native']:.3f} vs {row['cifar_ms_numpy']:.3f} ms; "
+        + ", ".join(f"{n} {row[n + '_elements_differing']} of {row[n + '_elements']} "
+                    f"elements differ, max {row[n + '_max_abs_diff']:.3e}"
+                    for n in ("folder", "crop", "cifar"))
+        + f" (<= {NATIVE_MAX_DIFF:.3e}); phase 25's test made "
+        f"{row['cli_test_native_crops']} native crops; card host of: {card}")
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -2149,7 +2263,8 @@ def main() -> int:
 
     # 25. the command line
     reset_peak(dev)
-    log("[25] " + json.dumps(cli_path(dev, card)))
+    cli_row = cli_path(dev, card)
+    log("[25] " + json.dumps(cli_row))
 
     # 26. the Trainer under a process group; two processes on the card
     reset_peak(dev)
@@ -2164,6 +2279,9 @@ def main() -> int:
     reset_peak(dev)
     flows_row = spatial_workflows(card)
     log("[28] " + json.dumps(flows_row, default=float))
+
+    # 29. the loaders' native helper on the card's host
+    log("[29] " + json.dumps(native_loader(card, cli_row)))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

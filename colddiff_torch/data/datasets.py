@@ -15,10 +15,12 @@ reference datasets:
 Images are NHWC float32 in [-1, 1].  Every random draw comes from the
 dataset's own ``np.random.default_rng(seed)``, in the JAX order.
 
-The crops and the uint8 -> [-1, 1] scaling are the JAX package's numpy
-path, ``v / 255 * 2 - 1``.  (Its optional native helper computes
-``v * (2 / 255) - 1``, which can differ in the last bit.)  Raw MNIST (idx)
-and CIFAR-10 (pickle batches) parsers read the standard downloads.
+The ``aug1``/``center`` crops and the uint8 ``cifar`` arrays' pad-4 crops go
+through :mod:`.native`, as the JAX loaders do: its C++ helper scales by
+``v * (2/255) - 1``, and under ``COLDDIFF_NO_NATIVE`` its numpy path by
+``v / 255 * 2 - 1``, like the rest of this module, so each path gives the
+JAX loader's bits.  Raw MNIST (idx) and CIFAR-10 (pickle batches) parsers
+read the standard downloads.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from . import native
 
 __all__ = [
     "ImageFolderDataset",
@@ -44,14 +48,6 @@ _EXTS = ("jpg", "jpeg", "png", "JPG", "JPEG", "PNG")
 
 def _to_tensor_range(img: np.ndarray) -> np.ndarray:
     return img.astype(np.float32) / 255.0 * 2.0 - 1.0
-
-
-def _crop_flip_normalize(img: np.ndarray, y0: int, x0: int, size: int,
-                         flip: bool) -> np.ndarray:
-    crop = img[y0 : y0 + size, x0 : x0 + size]
-    if flip:
-        crop = crop[:, ::-1]
-    return _to_tensor_range(crop)
 
 
 class ImageFolderDataset:
@@ -96,7 +92,7 @@ class ImageFolderDataset:
             arr = np.asarray(img)
             if arr.ndim == 2:
                 arr = arr[..., None]
-            return _crop_flip_normalize(arr, y0, x0, s, flip)
+            return native.crop_flip_normalize(arr, y0, x0, s, flip)
         elif self.aug == "center_pad":
             w, h = img.size
             x0, y0 = (w - s) // 2, (h - s) // 2
@@ -158,10 +154,10 @@ class ArrayDataset:
             x0 = int(self._rng.integers(0, 9))
             y0 = int(self._rng.integers(0, 9))
             flip = self._rng.random() < 0.5
+            if arr.dtype == np.uint8:
+                return native.pad4_crop_flip_normalize(arr, y0, x0, flip)
             s = arr.shape[0]
             p = np.pad(arr, ((4, 4), (4, 4), (0, 0)), mode="constant")
-            if arr.dtype == np.uint8:
-                return _crop_flip_normalize(p, y0, x0, s, flip)
             arr = p[y0 : y0 + s, x0 : x0 + s]
             if flip:
                 arr = arr[:, ::-1].copy()

@@ -38,6 +38,8 @@ __all__ = [
     "ConvNextBlock",
     "RowConv2d",
     "RowConvTranspose2d",
+    "linear_attention",
+    "linear_attention_blockdiag",
     "linear_attention_folded",
     "LinearAttention",
     "Downsample",
@@ -166,6 +168,37 @@ class ConvNextBlock(nn.Module):
                            gamma, beta, norm=self.norm)
         h = self.net[3](gelu(self.net[1](h)))
         return h + self.res_conv(x)
+
+
+def linear_attention(q, k, v, scale: float):
+    """softmax(k) over tokens -> context = k^T v -> out = q context, per group.
+
+    Port of the JAX ``linear_attention`` (deblurring_diffusion_pytorch.py:180-186
+    torch einsum semantics): q, k, v are [G, N, D] with G = batch * heads.
+    A reference form: ``LinearAttention`` computes
+    :func:`linear_attention_folded`.
+    """
+    ks = torch.softmax(k, dim=1)
+    context = torch.einsum("gnd,gne->gde", ks, v)
+    return torch.einsum("gde,gnd->gne", context, q * scale)
+
+
+def linear_attention_blockdiag(q, k, v, heads: int, scale: float):
+    """:func:`linear_attention` with the heads never split.
+
+    Port of the JAX ``linear_attention_blockdiag``: q, k, v are [B, N,
+    heads*D] in head-major channel order (h*D + d).  The token softmax is
+    per channel, so the per-head contexts are the diagonal blocks of one
+    [C, C] contraction, kept by a block mask.  A reference form, as
+    :func:`linear_attention` is.
+    """
+    c = q.shape[-1]
+    d = c // heads
+    i = torch.arange(c, device=q.device)
+    mask = ((i[:, None] // d) == (i[None, :] // d)).to(q.dtype)
+    ks = torch.softmax(k, dim=1)
+    context = torch.einsum("bnc,bne->bce", ks, v) * mask
+    return torch.einsum("bce,bnc->bne", context, q * scale)
 
 
 def linear_attention_folded(xt, wqkv, wout, bout, heads: int, scale: float):

@@ -2,7 +2,8 @@
 
 ``get_operator(name, **cfg)`` builds one by name with the JAX
 ``get_operator``'s keywords plus ``device`` (the card unless the caller asks
-for the CPU).
+for the CPU); ``register(name, cls)`` adds a user's operator to the registry
+that ``get_operator`` and the CLI's ``make_operator`` read.
 """
 
 from .base import Degradation
@@ -28,6 +29,12 @@ _REGISTRY = {
 }
 
 
+def register(name: str, cls) -> None:
+    """Add ``cls`` (a :class:`Degradation` with a ``create(**cfg)``
+    classmethod) under ``name``, or replace the class that name held."""
+    _REGISTRY[name] = cls
+
+
 def get_operator(name: str, **cfg) -> Degradation:
     """Build a degradation operator by name.
 
@@ -44,4 +51,4 @@ def get_operator(name: str, **cfg) -> Degradation:
 
 __all__ = ["Degradation", "Animorphosis", "Decolorization", "Fade", "FadeGeneration",
            "FadeNaive", "GaussianBlur", "GaussianNoise", "Interpolation", "Resolution",
-           "Snow", "get_operator"]
+           "Snow", "get_operator", "register"]

@@ -5,9 +5,10 @@ parsers, ``get_dataset`` over the CelebA, Flowers, LSUN, MNIST and CIFAR
 layouts, the CLI's ``make_dataset``, and ``create_data``'s PNG trees.
 Each dataset draws from its own ``np.random.default_rng(seed)`` in the JAX
 order, so the arrays are equal.  Where the JAX path goes through its native
-crop helper (``aug1``, ``center``, uint8 ``cifar`` arrays), which scales by
-``v * (2/255) - 1`` where the port computes ``v / 255 * 2 - 1``, they agree
-to 1e-6.  Also ``rgb2hsv``/``hsv2rgb`` against the JAX copies at 1e-6.
+crop helper (``aug1``, ``center``, uint8 ``cifar`` arrays), so does the
+port's; these cases are held at 1e-6 here and bitwise in
+``tests/test_torch_native.py``.  Also ``rgb2hsv``/``hsv2rgb`` against the
+JAX copies at 1e-6.
 """
 
 import argparse

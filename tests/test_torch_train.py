@@ -291,9 +291,10 @@ def _png_folder(tmp_path):
 
 @pytest.mark.parametrize("aug", ["aug1", "center"])
 def test_image_folder_dataset_equals_original(tmp_path, monkeypatch, aug):
-    """Against the original's numpy path: its optional native helper scales
-    by v * (2/255) - 1, which can differ in the last bit."""
+    """Both packages on their numpy path (the native helpers, on both sides,
+    are held against each other in tests/test_torch_native.py)."""
     monkeypatch.setattr("colddiff.data.native.get_lib", lambda: None)
+    monkeypatch.setattr("colddiff_torch.data.native.get_lib", lambda: None)
     folder = _png_folder(tmp_path)
     want = jdatasets.ImageFolderDataset(str(folder), 16, aug=aug, seed=3)
     got = datasets.ImageFolderDataset(str(folder), 16, aug=aug, seed=3)
@@ -307,6 +308,7 @@ def test_image_folder_dataset_equals_original(tmp_path, monkeypatch, aug):
                                        ("cifar", np.uint8), ("cifar", np.float32)])
 def test_array_dataset_equals_original(monkeypatch, aug, dtype):
     monkeypatch.setattr("colddiff.data.native.get_lib", lambda: None)
+    monkeypatch.setattr("colddiff_torch.data.native.get_lib", lambda: None)
     imgs = np.random.default_rng(1).integers(0, 256, (5, 12, 12, 3)).astype(dtype)
     want = jdatasets.ArrayDataset(imgs, aug=aug, seed=2)
     got = datasets.ArrayDataset(imgs, aug=aug, seed=2)

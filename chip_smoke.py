@@ -196,6 +196,22 @@ checks it, in phases:
      without the PNG decode and resize); and phase
      25's in-process ``test`` checked to have cropped through the native
      helper.
+ 30. the record workflows (``colddiff_torch/scripts/``: the twins of the
+     JAX package's five record scripts), each through its ``main`` at full
+     width (``UnetConvNext(64, (1, 2, 4, 8))``, 64 or 128 px, full T) but
+     short, writing under a temporary folder: ``train_loss_parity`` (20
+     steps fp32 and bf16 at 128 px), ``refresh_quality`` (16 images on
+     the fp32 run's checkpoint, K = 1/2/4/8 fp32 and 1/4/8 bf16),
+     ``family_b_generation`` (20 steps, 32 images from noise by
+     x0_step_down and ddim), ``family_b_refresh_quality`` (32 images on
+     that checkpoint) and ``gmm_generation`` (20 bf16 steps, 32 GMM
+     images at noise 0.0 and 0.002); each checked for its front launches
+     (17 a forward, the stem through the small-C kernel), finite losses
+     that fall over the 20 steps, every key of the JAX record it twins
+     (``docs/examples/*.json``), and ``docs/examples/`` left byte for byte
+     as it was; then a Family-B run of 10 steps resumed to 20 against an
+     unbroken 20-step run, bitwise, under cuDNN's deterministic mode (set
+     for that check alone and restored).
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -218,6 +234,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -303,6 +320,14 @@ NATIVE_FOLDER_B, NATIVE_CIFAR_B = 16, 32  # phase 29: a batch of each loader
 NATIVE_REPS = 20  # timed rounds of both paths in turns; each path's median is kept
 NATIVE_MAX_DIFF = float(np.finfo(np.float32).eps)  # v * (2/255) - 1 vs v / 255 * 2 - 1
 LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
+REC_STEPS, REC_RESUME_AT = 20, 10  # phase 30: a twin's train steps; the resume's cut
+REC_N_GEN, REC_REFRESH_IMAGES = 32, 16  # images a generation twin makes; a sweep's
+REC_FALL = 5  # the losses averaged at each end of a parity run
+REC_JAX = {"train_loss_parity": "train_bf16_parity.json",
+           "refresh_quality": "refresh_quality.json",
+           "family_b_generation": "family_b_generation.json",
+           "family_b_refresh_quality": "family_b_refresh_quality.json",
+           "gmm_generation": "gmm_generation.json"}
 REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
 PLAIN_RUN = 20  # calls per run of a plain version (~12 launches each)
@@ -1972,6 +1997,160 @@ def native_loader(card: str, cli_row: dict) -> dict:
     return row
 
 
+def _docs_hashes() -> dict:
+    docs = REPO / "docs" / "examples"
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(docs.iterdir()) if p.is_file()}
+
+
+def _sampler_calls(timesteps: int, refresh_every: int, n: int, chunk: int = 16) -> int:
+    """Model forwards of one sample of ``n`` images at ``refresh_every``."""
+    return -(-timesteps // refresh_every) * -(-n // chunk)
+
+
+def record_workflows(device, card: str) -> dict:
+    """Phase 30: the five record twins through their ``main`` at full width,
+    short, under a temporary folder; then the bitwise resume."""
+    from colddiff_torch.scripts import (_records, family_b_generation,
+                                        family_b_refresh_quality, gmm_generation,
+                                        refresh_quality, train_loss_parity)
+
+    t_phase = time.perf_counter()
+    mods = {"train_loss_parity": train_loss_parity, "refresh_quality": refresh_quality,
+            "family_b_generation": family_b_generation,
+            "family_b_refresh_quality": family_b_refresh_quality,
+            "gmm_generation": gmm_generation}
+    before = _docs_hashes()
+    row = dict(phase="30", steps=REC_STEPS, n_gen=REC_N_GEN, refresh_images=REC_REFRESH_IMAGES,
+               twins={})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        parity_runs, fb_run, gmm_run = tmp / "parity", tmp / "family_b", tmp / "gmm"
+        fb_t, gmm_t = family_b_generation.T, gmm_generation.T
+        n = REC_N_GEN
+        # each timed sample is one forward of warm-up on one chunk, then the
+        # sample (``_records.timed_call``); GMM's rows are not warmed
+        plans = {
+            "train_loss_parity": ([str(REC_STEPS), "--runs", str(parity_runs)],
+                                  2 * REC_STEPS * ACCUM),
+            "refresh_quality": (["--checkpoint", str(parity_runs / "fp32" / "model.pt"),
+                                 "--n_images", str(REC_REFRESH_IMAGES)],
+                                sum(1 + _sampler_calls(T, k, REC_REFRESH_IMAGES)
+                                    for k in (*refresh_quality.FP32_KS,
+                                              *refresh_quality.BF16_KS))),
+            "family_b_generation": ([str(REC_STEPS), "--run", str(fb_run), "--n_gen", str(n)],
+                                    REC_STEPS * ACCUM + 2 * (1 + _sampler_calls(fb_t, 1, n))),
+            "family_b_refresh_quality": (["--checkpoint", str(fb_run / "model.pt"),
+                                          "--n_gen", str(n)],
+                                         sum(1 + _sampler_calls(fb_t, k, n)
+                                             for k in family_b_refresh_quality.KS)),
+            "gmm_generation": ([str(REC_STEPS), "--run", str(gmm_run), "--n_gen", str(n)],
+                               REC_STEPS * ACCUM + 2 * _sampler_calls(gmm_t, 1, n)),
+        }
+        for name, (argv, forwards) in plans.items():
+            out = tmp / f"torch_{name}.json"
+            reset_peak(device)
+            zero_launches()
+            t0 = time.perf_counter()
+            rc = mods[name].main([*argv, "--out", str(out)])
+            torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            launches, small, wide = launch_counts()
+            got = json.loads(out.read_text())
+            want = _records.key_paths(json.loads(
+                (REPO / "docs" / "examples" / REC_JAX[name]).read_text()))
+            missing = sorted(want - _records.key_paths(got))
+            if rc != 0 or missing:
+                raise AssertionError(f"phase 30 {name}: exit {rc}, JAX record keys missing "
+                                     f"{missing}")
+            if (launches, small, wide) != (17 * forwards, forwards, 0):
+                raise AssertionError(f"phase 30 {name}: front launches {(launches, small, wide)}"
+                                     f", expected {(17 * forwards, forwards, 0)} ({forwards} "
+                                     "forwards, 17 fronts each, the stem small-C)")
+            r = dict(seconds=seconds, forwards=forwards, launches=launches,
+                     small_c_launches=small, peak_bytes=torch.cuda.max_memory_allocated(device))
+            if name == "train_loss_parity":
+                for tag in ("fp32", "bf16"):
+                    losses = [json.loads(s)["loss"] for s in
+                              (parity_runs / tag / "losses.jsonl").read_text().splitlines()]
+                    first = float(np.mean(losses[:REC_FALL]))
+                    last = float(np.mean(losses[-REC_FALL:]))
+                    if not (len(losses) == REC_STEPS and all(map(math.isfinite, losses))
+                            and last < first):
+                        raise AssertionError(f"phase 30 {name} {tag}: losses {losses} not "
+                                             f"finite or not falling ({first} -> {last})")
+                    r[f"{tag}_loss_first{REC_FALL}_mean"] = first
+                    r[f"{tag}_loss_last{REC_FALL}_mean"] = last
+                    r[f"{tag}_wall_s"] = got[tag]["wall_s"]
+                r["tail50_rel_diff"] = got["tail50_rel_diff"]
+            elif "loss_trajectory" in got:
+                losses = [p["loss"] for p in got["loss_trajectory"]]
+                if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+                    raise AssertionError(f"phase 30 {name}: losses {got['loss_trajectory']} "
+                                         "not finite or not falling")
+                r.update(loss_trajectory=got["loss_trajectory"],
+                         train_time_s=got["train_time_s"])
+                held = got["anchors_vs_jax"]
+                if not all(v["within"] for v in held.values()):
+                    raise AssertionError(f"phase 30 {name}: anchors against JAX {held}")
+                r.update(anchors_vs_jax={k: v["diff"] for k, v in held.items()},
+                         calibration=got["calibration"])
+            for part in ("sweep", "bf16_sweep"):
+                if part in got:
+                    r[part] = got[part]
+            for part in ("routines", "gmm"):
+                if part in got:
+                    r[part] = got[part]
+            row["twins"][name] = r
+            log(f"[30] {name}: {seconds:.1f} s, {forwards} forwards, front launches "
+                f"{launches} (small-C {small}), JAX record keys all present; card: {card}")
+        pngs = sorted(p.name for p in tmp.glob("*.png"))
+        if len(pngs) != 6:
+            raise AssertionError(f"phase 30: sample grids {pngs}, expected 6")
+
+        # the resume: 10 steps, a new Trainer from the checkpoint, 10 more,
+        # against 20 unbroken, with cuDNN's algorithm choice fixed
+        prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            fbg = family_b_generation
+            a = fbg.make_trainer(tmp / "unbroken", device=device)
+            pa, _ = _records.run_steps(a, REC_STEPS, every=1, save_every=REC_RESUME_AT)
+            b = fbg.make_trainer(tmp / "resumed", device=device)
+            _records.run_steps(b, REC_RESUME_AT, every=1, save_every=REC_RESUME_AT)
+            del b
+            b = fbg.make_trainer(tmp / "resumed", device=device)
+            resumed_at = b.step
+            pb, _ = _records.run_steps(b, REC_STEPS, every=1, save_every=REC_RESUME_AT)
+            sa, sb = a.state(), b.state()
+            same = {k: all(torch.equal(x, y) for x, y in zip(sa[k].values(), sb[k].values()))
+                    for k in ("model", "ema")}
+            same["opt"] = all(torch.equal(x, y)
+                              for i in sa["opt"]["state"]
+                              for x, y in zip(sa["opt"]["state"][i].values(),
+                                              sb["opt"]["state"][i].values()))
+            same["losses"] = pa == pb
+            same["generator"] = torch.equal(sa["generator"], sb["generator"])
+            del a, b, sa, sb
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+        if not (resumed_at == REC_RESUME_AT and all(same.values())):
+            raise AssertionError(f"phase 30 resume: resumed at {resumed_at}, bitwise {same}")
+        row["resume"] = dict(cut=REC_RESUME_AT, steps=REC_STEPS, bitwise=same,
+                             cudnn_restored=(torch.backends.cudnn.deterministic,
+                                             torch.backends.cudnn.benchmark) == prev)
+        log(f"[30] a Family-B run of {REC_RESUME_AT} steps resumed to {REC_STEPS} == "
+            f"{REC_STEPS} unbroken, bitwise: {same} (cuDNN deterministic for this check, "
+            f"restored to {prev})")
+    after = _docs_hashes()
+    if after != before:
+        changed = sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))
+        raise AssertionError(f"phase 30: docs/examples/ changed: {changed}")
+    row.update(docs_examples_unchanged=True, phase_seconds=time.perf_counter() - t_phase)
+    gc.collect()
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -2282,6 +2461,10 @@ def main() -> int:
 
     # 29. the loaders' native helper on the card's host
     log("[29] " + json.dumps(native_loader(card, cli_row)))
+
+    # 30. the record workflows, short, at full width
+    reset_peak(dev)
+    log("[30] " + json.dumps(record_workflows(dev, card), default=float))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

@@ -27,7 +27,9 @@ JAX records' numbers:
 
 Each value is written beside the JAX value and the file it came from, with
 the difference and whether it lies within RMSE/SSIM 1e-4 absolute and
-proxy-FID 1% relative (the mean and std: equal).  The JSON is written in
+proxy-FID 1% relative, the mean and std within 4 float32 ulps of the JAX
+value (``_records.compare_ulps``): both packages run the same numpy code,
+and only the host's numpy rounds apart.  The JSON is written in
 any case; the exit code is 1 if a row misses.
 """
 
@@ -43,7 +45,8 @@ from pathlib import Path
 
 import numpy as np
 
-REPO = Path(__file__).resolve().parents[2]
+from ._records import FID_REL_LIMIT, REPO, card, compare_ulps
+
 MANIFOLD_RECORD = "runs/convergence_blur128/manifold/manifold_metrics.json"
 ANCHOR_RECORD = "docs/examples/gmm_generation.json"
 # docs/examples/convergence.md:31-36 and :60-66
@@ -56,17 +59,7 @@ TEST_FLAGS = ["--model", "UnetConvNext", "--batch_size", "16", "--test_type",
               "test_fid_distance_decrease_from_manifold"]
 TEST_END = 256
 ABS_LIMIT = 1e-4  # RMSE and SSIM
-FID_REL_LIMIT = 1e-2
 ANCHOR_IMG, ANCHOR_N = 64, 256
-
-
-def _card() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=30).stdout.strip() or "no nvidia-smi output"
-    except (OSError, subprocess.SubprocessError):
-        return "no nvidia-smi"
 
 
 def _cli(args: list, env: dict) -> tuple:
@@ -136,12 +129,8 @@ def anchor(device: str) -> dict:
         "compared": {
             "proxy_fid_train_half_vs_half": _compare(
                 fid, record["calibration"]["proxy_fid_train_half_vs_half"], rel=True),
-            "train_mean": {"port": mean, "jax": stats["train_mean"],
-                           "diff": mean - stats["train_mean"], "limit": "equal",
-                           "within": mean == stats["train_mean"]},
-            "train_std": {"port": std, "jax": stats["train_std"],
-                          "diff": std - stats["train_std"], "limit": "equal",
-                          "within": std == stats["train_std"]},
+            "train_mean": compare_ulps(mean, stats["train_mean"]),
+            "train_std": compare_ulps(std, stats["train_std"]),
         },
         "seconds": time.perf_counter() - t0,
     }
@@ -160,7 +149,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
-        out = {"card": _card(), "torch": torch.__version__, "device": args.device,
+        out = {"card": card(), "torch": torch.__version__, "device": args.device,
                "anchor": anchor(args.device),
                "degraded_row": degraded_row(args.device, Path(tmp))}
     rows = [r for part in ("anchor", "degraded_row") for r in out[part]["compared"].values()]

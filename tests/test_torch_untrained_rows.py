@@ -6,7 +6,9 @@ length=256)`` with the port's fallback extractor, as
 train mean and std that ``docs/examples/gmm_generation.json`` records.  It
 needs no model: the data and the extractor are pinned to JAX, so it holds
 within rel 1e-3 (the FID's ``sqrtm`` on features from another conv
-library), the mean and std bitwise.
+library), the mean and std bitwise on this host.  The scripts hold the
+mean and std within 4 float32 ulps, since another host's numpy may round
+them apart; a case shows that limit from both sides.
 """
 
 import json
@@ -18,6 +20,7 @@ import torch
 
 from colddiff_torch.data import SyntheticDataset
 from colddiff_torch.eval.fid import calculate_fid_given_samples, fid_features_fn
+from colddiff_torch.scripts._records import compare_ulps
 
 RECORD = Path(__file__).resolve().parents[1] / "docs" / "examples" / "gmm_generation.json"
 
@@ -43,3 +46,19 @@ def test_train_half_vs_half_anchor_equals_the_jax_record():
     for entry in record["gmm"].values():
         assert float(train.mean()) == entry["train_mean"]
         assert float(train.std()) == entry["train_std"]
+
+
+@pytest.mark.parametrize("key", ["train_mean", "train_std"])
+@pytest.mark.parametrize("ulps,within", [(2, True), (-2, True), (4, True), (5, False),
+                                         (-5, False)])
+def test_host_statistics_limit_is_four_float32_ulps(key, ulps, within):
+    """The limit ``untrained_rows`` and the generation records put on the
+    train mean and std, from both sides: the JAX value moved by 2 or 4
+    float32 ulps passes, by 5 fails."""
+    record = json.loads(RECORD.read_text())
+    want = next(iter(record["gmm"].values()))[key]
+    got = float(np.float32(want) + ulps * abs(np.spacing(np.float32(want))))
+    row = compare_ulps(got, want)
+    assert row["within"] is within, row
+    assert row["ulps"] == pytest.approx(abs(ulps), rel=1e-6)
+    assert row["limit"].startswith("4 float32 ulps")

@@ -212,6 +212,14 @@ checks it, in phases:
      as it was; then a Family-B run of 10 steps resumed to 20 against an
      unbroken 20-step run, bitwise, under cuDNN's deterministic mode (set
      for that check alone and restored).
+ 31. the initialisation: the flagship and ``get_model("UnetResNet",
+     dataset="cifar10")`` built through the CLI's ``build`` with ``--seed``,
+     each held to the JAX package's rule (``layers.init_as_flax``): the
+     pooled std of w * sqrt(fan_in) within 1 +- 0.01, no |w| * sqrt(fan_in)
+     past lecun_normal's cut 2 / 0.8796, zero biases, norms at one and zero,
+     and a second build bitwise equal; the flagship's initial fp32
+     ``ColdDiffusion.loss`` on one synthetic batch of 16 (beside the JAX
+     record's first-10 mean) and its output std.
 
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
@@ -259,6 +267,7 @@ from colddiff_torch.eval import fid as fid_mod
 from colddiff_torch.models import UnetConvNext, get_model
 from colddiff_torch.models.convert import load_reference_checkpoint
 from colddiff_torch.cli import main as cli_main
+from colddiff_torch.models import layers
 from colddiff_torch.models.layers import ChannelLayerNorm, ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
@@ -323,6 +332,12 @@ LAB_REL = 1e-5  # rgb2lab / lab2rgb on the card vs the CPU, relative to max |y|
 REC_STEPS, REC_RESUME_AT = 20, 10  # phase 30: a twin's train steps; the resume's cut
 REC_N_GEN, REC_REFRESH_IMAGES = 32, 16  # images a generation twin makes; a sweep's
 REC_FALL = 5  # the losses averaged at each end of a parity run
+# phase 31: lecun_normal's cut of w * sqrt(fan_in), and the band of the pooled
+# std of w * sqrt(fan_in) (1 by the rule; over >= 35M weights its sampling
+# error is ~1e-4, and torch's default rule gives 1/sqrt(3) = 0.577)
+INIT_BOUND = 2.0 / 0.87962566103423978
+INIT_STD_TOL = 0.01
+JAX_FIRST10_LOSS = 0.65449  # docs/examples/train_bf16_parity.json, fp32 first-10 mean
 REC_JAX = {"train_loss_parity": "train_bf16_parity.json",
            "refresh_quality": "refresh_quality.json",
            "family_b_generation": "family_b_generation.json",
@@ -2151,6 +2166,95 @@ def record_workflows(device, card: str) -> dict:
     return row
 
 
+def init_stats(model: torch.nn.Module) -> dict:
+    """The JAX rule's statistics of ``model``'s parameters: the pooled std
+    of w * sqrt(fan_in) over every conv and linear weight (fan_in the Flax
+    kernel's, ``layers._flax_fan_in``), its largest |w| * sqrt(fan_in),
+    the largest |bias|, and the largest |scale - 1| or |offset| of the
+    norms."""
+    sums, n, wmax, bmax, nmax = [0.0, 0.0], 0, 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)):
+                z = m.weight.double() * math.sqrt(layers._flax_fan_in(m))
+                sums[0] += z.sum().item()
+                sums[1] += z.square().sum().item()
+                n += z.numel()
+                wmax = max(wmax, z.abs().max().item())
+                if m.bias is not None:
+                    bmax = max(bmax, m.bias.abs().max().item())
+            elif isinstance(m, (ChannelLayerNorm, torch.nn.GroupNorm)):
+                g, b = (m.g, m.b) if isinstance(m, ChannelLayerNorm) else (m.weight, m.bias)
+                nmax = max(nmax, (g - 1).abs().max().item(), b.abs().max().item())
+    mean = sums[0] / n
+    return dict(weights=n, pooled_std=math.sqrt(sums[1] / n - mean * mean), pooled_mean=mean,
+                max_abs_scaled=wmax, max_abs_bias=bmax, max_norm_dev=nmax)
+
+
+def init_rule(device, card: str) -> dict:
+    """Phase 31: the flagship and the CIFAR-10 ResNet built through the CLI's
+    ``build`` (``--seed``), each held to the JAX package's initial
+    distribution (``layers.init_as_flax``) and rebuilt bitwise from its
+    seed; the flagship's initial fp32 loss on one synthetic batch of 16.
+    Returns the phase's row."""
+    t_phase = time.perf_counter()
+    flags = {
+        "UnetConvNext(64, (1, 2, 4, 8))": [
+            "--dataset", "synthetic", "--model", "UnetConvNext", "--dim", "64",
+            "--image_size", str(IMG), "--time_steps", str(T), "--blur_routine",
+            "Exponential_reflect", "--blur_size", "15", "--blur_std", "0.01"],
+        "UnetResNet cifar10": ["--dataset", "cifar10", "--model", "UnetResNet"],
+    }
+    row = dict(phase="31", seed=SEED, bound=INIT_BOUND, std_tol=INIT_STD_TOL, families={})
+    for family, argv in flags.items():
+        args = cli_main.build_parser().parse_args(
+            ["train", *argv, "--device", str(device), "--seed", str(SEED)])
+        t0 = time.perf_counter()
+        d, model, size, _ = cli_main.build(args)
+        build_s = time.perf_counter() - t0
+        again = cli_main.build(args)[1]
+        bitwise = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                        again.state_dict().values()))
+        del again
+        st = init_stats(model)
+        r = dict(st, build_s=build_s, rebuilt_bitwise=bitwise,
+                 params=sum(p.numel() for p in model.parameters()))
+        if not (bitwise and abs(st["pooled_std"] - 1.0) <= INIT_STD_TOL
+                and st["max_abs_scaled"] <= INIT_BOUND * (1 + 1e-6)
+                and st["max_abs_bias"] == 0.0 and st["max_norm_dev"] == 0.0):
+            raise AssertionError(f"phase 31 {family}: leaves the JAX rule's bands: {r}")
+        if model.__class__ is UnetConvNext:
+            model = model.to(device)
+            ds = SyntheticDataset(size, 3, length=BATCH)
+            x = torch.from_numpy(np.stack([ds[i] for i in range(BATCH)])).to(device)
+            zero_launches()
+            with torch.no_grad():
+                loss = d.loss(model, x, torch.Generator(device=device).manual_seed(SEED)).item()
+                out_std = model(x, torch.full((BATCH,), T // 2, device=device)).std().item()
+            torch.cuda.synchronize(device)
+            launches, small, _ = launch_counts()
+            if not (math.isfinite(loss) and (launches, small) == (34, 2)):
+                raise AssertionError(f"phase 31: initial loss {loss}, front launches "
+                                     f"{(launches, small)}, expected (34, 2)")
+            r.update(initial_loss_fp32=loss, jax_first10_loss_fp32=JAX_FIRST10_LOSS,
+                     output_std_t100=out_std, launches=launches)
+        row["families"][family] = r
+        log(f"[31] {family} ({r['params']} parameters, built in {build_s:.2f} s, rebuilt "
+            f"bitwise from --seed {SEED}: {bitwise}): pooled std of w*sqrt(fan_in) "
+            f"{st['pooled_std']:.6f} (1 +- {INIT_STD_TOL}), mean {st['pooled_mean']:.2e}, "
+            f"max |w|*sqrt(fan_in) {st['max_abs_scaled']:.6f} (<= {INIT_BOUND:.6f}), max "
+            f"|bias| {st['max_abs_bias']}, max norm deviation {st['max_norm_dev']}"
+            + (f"; initial fp32 loss {r['initial_loss_fp32']:.6f} on a synthetic batch of "
+               f"{BATCH} (JAX record a's first-10 mean {JAX_FIRST10_LOSS}), output std at "
+               f"t={T // 2} {r['output_std_t100']:.4f}, front launches {r['launches']}"
+               if "initial_loss_fp32" in r else "") + f"; card: {card}")
+        del model, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    return row
+
+
 def probe_kernels(device):
     """Phase 9: the probe entry point's four kernels against their plain
     versions, each with its device time over a run, its single-call time,
@@ -2465,6 +2569,9 @@ def main() -> int:
     # 30. the record workflows, short, at full width
     reset_peak(dev)
     log("[30] " + json.dumps(record_workflows(dev, card), default=float))
+
+    # 31. the JAX package's initialisation, through the CLI's build
+    log("[31] " + json.dumps(init_rule(dev, card), default=float))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

@@ -1,8 +1,12 @@
 """Model selector, the twin of ``colddiff/models/get_model.py``
 (snowification/diffusion/model/get_model.py:4-36).  Models are built on the
-CPU; the caller moves them."""
+CPU, their weights drawn by the JAX package's rule from ``generator``
+(``layers.init_as_flax``; torch's default generator when None); the caller
+moves them."""
 
 from __future__ import annotations
+
+import torch
 
 from .unet_convnext import UnetConvNext
 from .unet_resnet import UnetResNet
@@ -22,6 +26,7 @@ def get_model(
     dim_mults=(1, 2, 4, 8),
     dropout: float = 0.1,
     output_mean_scale: bool = False,
+    generator: torch.Generator | None = None,
 ):
     if model == "UnetConvNext":
         return UnetConvNext(
@@ -31,6 +36,7 @@ def get_model(
             with_time_emb=with_time_emb,
             residual=residual,
             output_mean_scale=output_mean_scale,
+            generator=generator,
         )
     if model == "UnetResNet":
         if image_size is None:
@@ -45,5 +51,6 @@ def get_model(
             attn_resolutions=(16,),
             with_time_emb=with_time_emb,
             dropout=dropout,
+            generator=generator,
         )
     raise ValueError(f"unknown model: {model}")

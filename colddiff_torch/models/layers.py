@@ -15,6 +15,9 @@ linear attention's token softmax and context sum over the space group, the
 GroupNorm's statistics are the group's, the softmax attention's keys and
 values are gathered, dropout keeps its rows of the whole images' mask, and
 the per-pixel pieces stay local.
+
+:func:`init_as_flax` gives a freshly built UNet of either family the JAX
+package's initial distribution (Flax's defaults).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ __all__ = [
     "FusedGroupNormSwish",
     "SoftmaxAttention",
     "dropout",
+    "init_as_flax",
 ]
 
 
@@ -394,3 +398,55 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return torch.zeros_like(x)
     keep = _keep_mask(x, p, generator)
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+# std of a unit normal truncated to [-2, 2]: Flax's variance_scaling
+# divides by it so that the truncated draw keeps the variance asked for
+_TRUNC_STD = 0.87962566103423978
+
+
+def _flax_fan_in(m: nn.Module) -> int:
+    """fan_in of the Flax kernel that ``convert.py`` maps ``m.weight`` from:
+    a conv's (kh, kw, I/groups, O) gives kh * kw * I/groups (49 for the
+    depthwise ``ds_conv``), a dense's (I, O) gives I, and a transposed
+    conv's (kh, kw, I, O) gives kh * kw * I, I being torch's
+    ``weight.shape[0]`` (torch's own rule takes the output channels)."""
+    w = m.weight
+    if isinstance(m, nn.Linear):
+        return w.shape[1]
+    if isinstance(m, nn.ConvTranspose2d):
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return w[0].numel()
+
+
+@torch.no_grad()
+def init_as_flax(module: nn.Module,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Draw ``module``'s parameters from the JAX package's initial
+    distribution, Flax's defaults, and return ``module``.
+
+    Every ``nn.Conv2d``, ``nn.ConvTranspose2d`` and ``nn.Linear`` weight
+    (the ``Row*`` subclasses too) takes ``lecun_normal``
+    (``variance_scaling(1, "fan_in", "truncated_normal")``): a normal of
+    std sqrt(1 / fan_in) / 0.8796 truncated at +-2 of that std, so its
+    variance is 1 / fan_in, with fan_in from :func:`_flax_fan_in`.  Biases
+    are zeros.  The ``ChannelLayerNorm`` and ``GroupNorm`` scales and
+    offsets keep their construction values, ones and zeros, Flax's.  The
+    weights are drawn in ``module.modules()`` order from ``generator``
+    (torch's default generator when None), which must live on the
+    parameters' device: models are built on the CPU, so a seed gives the
+    same weights whatever device the model moves to.
+    """
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # jax.random.truncated_normal's inverse-CDF draw: U(erf(-2/sqrt2),
+            # erf(2/sqrt2)) through sqrt2 * erfinv.  torch's trunc_normal_
+            # samples by rejection from 2.13 on (other draws for one seed
+            # across torch versions) and takes ~8x longer
+            lim = math.erf(math.sqrt(2.0))
+            m.weight.uniform_(-lim, lim, generator=generator).erfinv_()
+            m.weight.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(
+                math.sqrt(1.0 / _flax_fan_in(m)) / _TRUNC_STD)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module

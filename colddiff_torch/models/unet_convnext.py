@@ -35,6 +35,7 @@ from .layers import (
     SinusoidalPosEmb,
     Upsample,
     gelu,
+    init_as_flax,
 )
 
 __all__ = ["UnetConvNext"]
@@ -71,7 +72,11 @@ class UnetConvNext(nn.Module):
     def __init__(self, dim: int, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 3,
                  with_time_emb: bool = True, residual: bool = False,
-                 output_mean_scale: bool = False):
+                 output_mean_scale: bool = False, *,
+                 generator: Optional[torch.Generator] = None):
+        """The weights are drawn by the JAX package's rule
+        (``layers.init_as_flax``) from ``generator``, torch's default
+        generator when None."""
         super().__init__()
         self.channels = channels
         self.residual = residual
@@ -116,6 +121,7 @@ class UnetConvNext(nn.Module):
             ConvNextBlock(dim, dim),
             nn.Conv2d(dim, out_dim if out_dim is not None else channels, 1),
         )
+        init_as_flax(self, generator)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import spatial
-from .layers import FusedGroupNormSwish, RowConv2d, SoftmaxAttention, dropout, swish
+from .layers import (FusedGroupNormSwish, RowConv2d, SoftmaxAttention, dropout,
+                     init_as_flax, swish)
 
 __all__ = ["UnetResNet", "timestep_embedding"]
 
@@ -122,7 +123,11 @@ class UnetResNet(nn.Module):
     def __init__(self, ch: int, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 8),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  dropout: float = 0.0, resamp_with_conv: bool = True,
-                 in_channels: int = 3, resolution: int = 32, with_time_emb: bool = True):
+                 in_channels: int = 3, resolution: int = 32, with_time_emb: bool = True,
+                 *, generator: Optional[torch.Generator] = None):
+        """The weights are drawn by the JAX package's rule
+        (``layers.init_as_flax``) from ``generator``, torch's default
+        generator when None."""
         super().__init__()
         self.ch = ch
         self.resolution = resolution
@@ -178,6 +183,7 @@ class UnetResNet(nn.Module):
 
         self.norm_out = FusedGroupNormSwish(block_in)
         self.conv_out = RowConv2d(block_in, out_ch, 3, padding=1)
+        init_as_flax(self, generator)
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

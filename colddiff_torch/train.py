@@ -73,11 +73,13 @@ buckets; the reported loss is the mean over the processes.
 ``param_sharding="fsdp"`` shards the model, the EMA and Adam's moments
 with ``fully_shard`` at ``parallel.fsdp_sharding``'s placements
 (``fsdp_min_size``), its ``MixedPrecisionPolicy`` gathering bf16 weights
-under ``bf16``; the EMA updates the local shards.  Sample grids come from
-rank 0 after every process gathers the EMA; ``save()`` gathers the whole
-state and rank 0 writes it, with the reference's names, so a checkpoint of
-any run loads into any other; logs and ``metrics.jsonl`` come from rank 0,
-and the RSS restart trigger stays single-process.  Without a process group
+under ``bf16``; its gradients too are reduced once a step, at the last
+microbatch's backward (``set_requires_gradient_sync``), so they sum in the
+replicated path's order; the EMA updates the local shards.  Sample grids
+come from rank 0 after every process gathers the EMA; ``save()`` gathers
+the whole state and rank 0 writes it, with the reference's names, so a
+checkpoint of any run loads into any other; logs and ``metrics.jsonl``
+come from rank 0, and the RSS restart trigger stays single-process.  Without a process group
 no collective runs.
 """
 
@@ -359,8 +361,11 @@ class Trainer:
         if self.debug_nans and not torch.isfinite(batch).all():
             raise FloatingPointError("debug_nans: the batch holds a non-finite value")
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        fsdp = is_sharded(self.model)
         for i in range(self.accum):
             x = batch[i]
+            if fsdp:  # reduce-scatter the microbatches' sum once, as the whole grads
+                self.model.set_requires_gradient_sync(i == self.accum - 1)
             fn = self._denoise_fn(self.model, self.dropout_generator, remat=self.remat)
             with self._rows():
                 x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
@@ -377,7 +382,7 @@ class Trainer:
         whole = [g for g in grads if not isinstance(g, DTensor)]
         sharded = [g for g in grads if isinstance(g, DTensor)]
         torch._foreach_div_(whole, self.accum)
-        if sharded:  # fully_shard averaged these over the processes at each backward
+        if sharded:  # fully_shard averaged these over the processes at the last backward
             torch._foreach_div_(sharded, self.accum)
         loss = loss_sum / self.accum
         if self.world > 1:

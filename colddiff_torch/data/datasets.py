@@ -32,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..tracing import span
 from . import native
 
 __all__ = [
@@ -298,8 +299,11 @@ class DataLoader:
             for _ in range(min(self.prefetch, len(batches))):
                 futures.append(pool.submit(load, next(it)))
             for b in it:
-                out = futures.pop(0).result()
+                with span("loader.queue"):  # the wait on the oldest prefetched batch
+                    out = futures.pop(0).result()
                 futures.append(pool.submit(load, b))
                 yield out
             for f in futures:
-                yield f.result()
+                with span("loader.queue"):
+                    out = f.result()
+                yield out

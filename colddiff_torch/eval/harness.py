@@ -39,6 +39,7 @@ from ..operators.base import table_device
 from ..ops.image import lab2rgb, resize_bilinear, rgb2lab
 from ..parallel.mesh import batch_rows, gather_rows, replicate, shard_batch
 from ..sampling import SampleResult, all_sample, prepare_start, sample
+from ..tracing import prepare
 from ..utils import apply_in_chunks, create_folder, save_gif, save_image_grid
 from .fid import calculate_fid_given_samples, fid_features_fn
 from .gmm import fit_gmm, sample_gmm
@@ -68,6 +69,7 @@ class EvalHarness:
         device: torch.device | str = "cuda",
     ):
         self.device = table_device(device, "EvalHarness")
+        prepare(self.device)  # the span markers, loaded before any profiler window
         self.d = dataclasses.replace(diffusion, op=diffusion.op.to(self.device))
         # opt-in prediction caching (sampling.sample): K=1 (default) is the
         # exact reference algorithm; every metric dict stamps the value

@@ -32,6 +32,7 @@ from torch import nn
 from ..ops.convnext_front import convnext_front
 from ..parallel import spatial
 from ..parallel.mesh import draw_rows
+from ..tracing import span
 
 __all__ = [
     "gelu",
@@ -289,15 +290,16 @@ def group_norm_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     deviations from it (what ``jnp.var`` computes), two group means and so
     two all-reduces a norm; ``F.group_norm`` takes no outside statistics,
     so the block is normalized explicitly."""
-    if spatial.current() is None:
-        xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
-    else:
-        xg = x.to(_stat_dtype(x)).unflatten(1, (num_groups, -1))  # [B, G, C/G, h, W]
-        dev = xg - spatial.group_mean(xg, (2, 3, 4))
-        var = spatial.group_mean(dev.square(), (2, 3, 4))
-        xn = (dev * torch.rsqrt(var + eps)).flatten(1, 2).to(x.dtype)
-    xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
-    return F.silu(xn) if swish else xn
+    with span("unet.group_norm"):
+        if spatial.current() is None:
+            xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
+        else:
+            xg = x.to(_stat_dtype(x)).unflatten(1, (num_groups, -1))  # [B, G, C/G, h, W]
+            dev = xg - spatial.group_mean(xg, (2, 3, 4))
+            var = spatial.group_mean(dev.square(), (2, 3, 4))
+            xn = (dev * torch.rsqrt(var + eps)).flatten(1, 2).to(x.dtype)
+        xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
+        return F.silu(xn) if swish else xn
 
 
 class FusedGroupNormSwish(nn.GroupNorm):

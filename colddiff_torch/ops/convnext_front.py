@@ -66,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from .. import tracing
 from ..parallel import spatial
 from . import _build
 
@@ -211,11 +212,10 @@ class _Front(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
+        with tracing.span("convnext_front.backward"), torch.enable_grad():
+            need = ctx.needs_input_grad[:6]
             args = [t.detach().requires_grad_() if (t is not None and n) else t
-                    for t, n in zip(saved, need)]
+                    for t, n in zip(ctx.saved_tensors, need)]
             y = convnext_front_plain(*args, norm=ctx.norm, eps=ctx.eps)
             wrt = [a for a, n in zip(args, need) if n]
             grads = iter(torch.autograd.grad(y, wrt, g))

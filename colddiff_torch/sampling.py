@@ -45,6 +45,7 @@ import torch
 
 from .diffusion import X0_ROUTINES, ColdDiffusion, DenoiseFn
 from .parallel.mesh import draw_rows
+from .tracing import span
 
 __all__ = ["SampleResult", "prepare_start", "sample", "all_sample",
            "sample_multi_step"]
@@ -193,7 +194,8 @@ def sample(
                 pred = denoise_fn(cur, level)
             else:
                 pred = x0_hat
-            new, x0_hat = _reverse_step(diffusion, cur, t_cur, pred, x_end, generator)
+            with span("sample.degrade"):
+                new, x0_hat = _reverse_step(diffusion, cur, t_cur, pred, x_end, generator)
             if k == 0:
                 direct = x0_hat
             if trajectory and k % traj_stride == 0:

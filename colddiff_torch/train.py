@@ -48,7 +48,8 @@ Switches, as in the JAX Trainer:
     613-625);
   - ``profile_dir``/``profile_steps``: a ``torch.profiler`` trace of the
     steps from ``profile_steps[0]`` to ``profile_steps[1]``, written as a
-    Chrome trace under ``profile_dir`` (JAX's ``jax.profiler`` window);
+    Chrome trace under ``profile_dir`` (JAX's ``jax.profiler`` window), the
+    port's spans (``colddiff_torch.tracing``) named in it;
   - ``debug_nans``: a non-finite batch or microbatch loss raises
     ``FloatingPointError`` (JAX's ``jax_debug_nans``).  The check waits for
     the card, so it runs only with the switch on;
@@ -109,6 +110,7 @@ from .ops.linop import require_ieee_fp32
 from .parallel.mesh import (all_reduce_mean, batch_rows, full_state_dict, is_sharded, make_mesh,
                             put_like, shard_like, shard_state)
 from .sampling import prepare_start, sample
+from .tracing import label, prepare, span
 from .utils import bf16_params, create_folder, cycle, ema_update, save_image_grid
 
 __all__ = ["Trainer"]
@@ -163,6 +165,7 @@ class Trainer:
             # the degrade matmuls need full fp32; the flag is global, so the
             # caller sets it (ops/linop.py)
             require_ieee_fp32(torch.empty(0, device=self.device))
+            prepare(self.device)  # the span markers, loaded before any profiler window
         if load_path is not None and load_torch_path is not None:
             raise ValueError("pass load_path or load_torch_path, not both")
         if param_sharding not in ("replicated", "fsdp"):
@@ -328,10 +331,11 @@ class Trainer:
         """[accum, B, H, W, C] float32 on the device, from ``dl`` (the
         training loader by default)."""
         dl = self.dl if dl is None else dl
-        xs = torch.from_numpy(np.stack([next(dl) for _ in range(self.accum)]))
-        if self.device.type == "cuda":
-            xs = xs.pin_memory().to(self.device, non_blocking=True)
-        return self._to_model_space(xs.to(self.device))
+        with span("train.loader"):
+            xs = torch.from_numpy(np.stack([next(dl) for _ in range(self.accum)]))
+            if self.device.type == "cuda":
+                xs = xs.pin_memory().to(self.device, non_blocking=True)
+            return self._to_model_space(xs.to(self.device))
 
     def _maybe_reset_op(self) -> None:
         """Redraw the state of operators with ``random_snow`` before each step
@@ -366,39 +370,42 @@ class Trainer:
             x = batch[i]
             if fsdp:  # reduce-scatter the microbatches' sum once, as the whole grads
                 self.model.set_requires_gradient_sync(i == self.accum - 1)
-            fn = self._denoise_fn(self.model, self.dropout_generator, remat=self.remat)
-            with self._rows():
-                x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
-                           else x_end[i])
-                loss = self.diffusion.loss(fn, x, self.generator,
-                                           t=None if t is None else t[i], x_end=x_end_i,
-                                           rng=None if rng is None else rng[i])
+            with span("train.forward"):
+                fn = self._denoise_fn(self.model, self.dropout_generator, remat=self.remat)
+                with self._rows():
+                    x_end_i = (op.sample_x_end(self.generator, x) if x_end is None
+                               else x_end[i])
+                    loss = self.diffusion.loss(fn, x, self.generator,
+                                               t=None if t is None else t[i], x_end=x_end_i,
+                                               rng=None if rng is None else rng[i])
             if self.debug_nans and not torch.isfinite(loss):
                 raise FloatingPointError(
                     f"debug_nans: microbatch {i} of step {self.step + 1} has loss {loss.item()}")
-            loss.backward()  # sums into .grad, as the JAX scan sums grads
+            with span("train.backward"):
+                loss.backward()  # sums into .grad, as the JAX scan sums grads
             loss_sum += loss.detach()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        whole = [g for g in grads if not isinstance(g, DTensor)]
-        sharded = [g for g in grads if isinstance(g, DTensor)]
-        torch._foreach_div_(whole, self.accum)
-        if sharded:  # fully_shard averaged these over the processes at the last backward
-            torch._foreach_div_(sharded, self.accum)
-        loss = loss_sum / self.accum
-        if self.world > 1:
-            all_reduce_mean([*whole, loss], self.mesh)
-        self.opt.step()
+        with span("train.optimizer"):
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            whole = [g for g in grads if not isinstance(g, DTensor)]
+            sharded = [g for g in grads if isinstance(g, DTensor)]
+            torch._foreach_div_(whole, self.accum)
+            if sharded:  # fully_shard averaged these over the processes at the last backward
+                torch._foreach_div_(sharded, self.accum)
+            loss = loss_sum / self.accum
+            if self.world > 1:
+                all_reduce_mean([*whole, loss], self.mesh)
+            self.opt.step()
 
-        # EMA: every `update_ema_every` steps; reset to the params during
-        # warmup (colddiff/train.py:308-318); on the local shards when sharded
-        self.step += 1
-        if self.step % self.update_ema_every == 0:
-            ema, new = _local(self.ema_model.parameters()), _local(self.model.parameters())
-            if self.step < self.step_start_ema:
-                with torch.no_grad():
-                    torch._foreach_copy_(ema, new)
-            else:
-                ema_update(ema, new, self.ema_decay)
+            # EMA: every `update_ema_every` steps; reset to the params during
+            # warmup (colddiff/train.py:308-318); on the local shards when sharded
+            self.step += 1
+            if self.step % self.update_ema_every == 0:
+                ema, new = _local(self.ema_model.parameters()), _local(self.model.parameters())
+                if self.step < self.step_start_ema:
+                    with torch.no_grad():
+                        torch._foreach_copy_(ema, new)
+                else:
+                    ema_update(ema, new, self.ema_decay)
         return loss
 
     @staticmethod
@@ -426,12 +433,14 @@ class Trainer:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self._profiler = torch.profiler.profile(activities=acts)
         self._profiler.start()
+        label(True)  # the port's spans appear in the exported trace
 
     def _stop_profiler(self) -> None:
         """Stop the trace and write it as ``trace_steps_<start>_<stop>.json``
         under ``profile_dir``."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        label(False)
         self._profiler.stop()
         create_folder(self.profile_dir)
         start, stop = self.profile_steps

@@ -601,3 +601,45 @@ def test_front_refuses_a_dtensor_weight(cuda):
             convnext_front(x, w_dt, b, cond, g, beta)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_span_markers_pair_with_boundaries_on_the_profilers_clock(cuda, tmp_path):
+    """A bf16 Trainer step under a CUDA-only profiler: one marker kernel a
+    span boundary, the front's backward's from the autograd engine's
+    thread; each marker starts on the device after its boundary's host
+    time, and one launched on an idle card within 1 ms of it: the host's
+    ``time.time_ns`` and the device trace share one clock."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from colddiff_torch import tracing
+
+    tr = _small_bf16_trainer(cuda, tmp_path)  # prepares the markers on the card
+    tr.train_step(tr._next_superbatch())  # warm
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device=cuda).add_(1)  # the profiler records from its first kernel on
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        with tracing.span("idle_card"):
+            torch.cuda.synchronize()
+        tr.train_step(tr._next_superbatch())
+        torch.cuda.synchronize()
+    bounds = tracing.boundaries()
+    cpu = torch.autograd.DeviceType.CPU
+    marks = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != cpu and e.name().startswith(tracing.MARKER))
+    names = [n for _, n, _, _ in bounds]
+    assert len(marks) == len(bounds) and names.count("convnext_front.backward") == 2 * 9 * 2
+    main = threading.get_ident()
+    assert {t for _, n, t, _ in bounds if n == "convnext_front.backward"} - {main}
+    assert {t for _, n, t, _ in bounds if n != "convnext_front.backward"} == {main}
+    lags = [m - b[3] for m, b in zip(marks, bounds)]
+    assert min(lags) >= 0, f"a marker starts {-min(lags)} ns before its boundary"
+    assert lags[0] < 1_000_000
+    print(f"shared clock: idle-card marker {lags[0]} ns after its boundary; "
+          f"lags {min(lags)}-{max(lags)} ns over {len(lags)} boundaries")

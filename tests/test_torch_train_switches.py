@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from colddiff_torch import tracing
 from colddiff_torch.data import datasets
 from colddiff_torch.diffusion import ColdDiffusion
 from colddiff_torch.models import UnetConvNext, UnetResNet
@@ -212,7 +213,8 @@ def test_profiler_writes_a_trace_of_its_window(tmp_path):
     assert [p.name for p in traces] == ["trace_steps_1_3.json"]
     text = traces[0].read_text()
     assert '"traceEvents"' in text and "aten::conv2d" in text
-    assert tr._profiler is None
+    assert '"train.forward"' in text  # the port's spans, named in the window
+    assert tr._profiler is None and not tracing._label
 
 
 # ---------------------------------------------------------------------- #

@@ -221,6 +221,17 @@ checks it, in phases:
      ``ColdDiffusion.loss`` on one synthetic batch of 16 (beside the JAX
      record's first-10 mean) and its output std.
 
+ 32. the GroupNorm-swish kernel (``colddiff_torch/csrc/group_norm_swish.cu``,
+     which replaces no TPU kernel): at each (C, H, swish) of the CIFAR-10
+     ResNet's 51 calls a forward, at B=256 in bf16, against the plain
+     version (within two bf16 ulps, at most 1% of elements not bitwise
+     equal, two runs bitwise equal), its form, and its device time beside
+     its bound, the plain chain's and one ``F.group_norm`` call's, summed
+     over the forward; the streaming form at (256, 64 px) and (128, 128 px)
+     in bf16 and fp32; and the ResNet's bf16 ``Trainer.train_step`` at
+     B=128 with the plain chain (the path before the kernel) and with the
+     kernel, a Trainer a turn (plain, kernel, kernel, plain).
+
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
 them back to back: the events time the card, not the Python and ctypes
@@ -238,6 +249,7 @@ kernels, after phases 27 and 28's launch counts; the last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -252,6 +264,7 @@ import tempfile
 import time
 from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -272,6 +285,7 @@ from colddiff_torch.models.layers import ChannelLayerNorm, ConvNextBlock
 from colddiff_torch.operators import get_operator
 from colddiff_torch.ops import _build
 from colddiff_torch.ops import bisect_mosaic as probe_ops
+from colddiff_torch.ops import group_norm as gn_ops
 from colddiff_torch.ops.convnext_front import (SMALL_C, TILE_MAX_CHANNELS, cluster_config,
                                               convnext_front, convnext_front_plain)
 from colddiff_torch.ops.image import lab2rgb, rgb2lab
@@ -301,6 +315,7 @@ WIDE_SHAPES = ((16, 16, 16, 1280), (16, 16, 16, 2048), (2, 8, 8, 4096), (2, 8, 8
 WIDE_DIM = 80  # UnetConvNext(dim=80): a 16 * 80 = 1280-channel front at ups.0.0
 CIFAR = 32  # phases 21-23: CIFAR-10 with the ResNet UNet of get_model
 RESNET_BATCH = 32
+RESNET_NORMS = 51  # its GroupNorm-swish calls a forward, each one kernel launch on the card
 CIFAR_T = 50  # blur Special_6_routine (BASELINE.md:24)
 ROUTINE_STEPS = 2  # phase 22: Trainer.train() steps a routine, after one warm-up
 MULTI_STEP_CPU_BATCH = 4  # phase 23: the fp32 model run on the card vs the CPU
@@ -343,6 +358,15 @@ REC_JAX = {"train_loss_parity": "train_bf16_parity.json",
            "family_b_generation": "family_b_generation.json",
            "family_b_refresh_quality": "family_b_refresh_quality.json",
            "gmm_generation": "gmm_generation.json"}
+# phase 32: the GroupNorm-swish kernel at the sample cell's batch, the
+# streaming form's shapes (C, H) at 64 and 128 px at GN_STREAM_BATCH, and
+# the ResNet's bf16 train step at GN_TRAIN_BATCH on both paths
+GN_BATCH, GN_STREAM_BATCH, GN_TRAIN_BATCH = 256, 16, 128
+GN_STREAM_SHAPES = ((256, 64), (128, 128))
+GN_TRAIN_STEPS = 20  # timed steps a turn, after 3 warm-up steps
+GN_FP32_TOL = 1e-5  # the statistics' summation order only
+GN_BF16_TOL = 2.0 ** -6  # a normalized value on the other bf16 neighbour, carried
+GN_BF16_MISMATCH = 0.01  # through the rounded product and sum; rarely
 REPO = Path(__file__).resolve().parent
 RUN = 50  # launches per device-time run of a kernel or a library call
 PLAIN_RUN = 20  # calls per run of a plain version (~12 launches each)
@@ -754,6 +778,12 @@ def reset_peak(device) -> int:
 def zero_launches() -> None:
     convnext_front.launches = convnext_front.small_c_launches = 0
     convnext_front.wide_c_launches = 0
+    gn_ops.group_norm_swish.launches = 0
+
+
+def norm_launches() -> int:
+    """GroupNorm-swish kernel launches since ``zero_launches``."""
+    return gn_ops.group_norm_swish.launches
 
 
 def launch_counts():
@@ -802,7 +832,8 @@ def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end
                 lab=False, fronts: int = 17, keep=None):
     """prepare_start + sample with the bf16 UNet, timed from a clean batch;
     checks the output and the launch counts (``fronts`` fronts a forward,
-    one of them small-C: 17 for UnetConvNext, 0 for UnetResNet).  A routine
+    one of them small-C: 17 for UnetConvNext, 0 for UnetResNet, whose
+    forward launches RESNET_NORMS GroupNorm-swish kernels instead).  A routine
     that draws (recon_noise_std, the spiral endpoint redrawn each step)
     draws from a seeded generator.  Returns a dict of the run's numbers;
     ``keep``, a dict, also receives the clean batch and the samples."""
@@ -822,20 +853,21 @@ def sample_path(d: ColdDiffusion, model, device, batch: int, size: int, *, x_end
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     launches, small, wide = launch_counts()
+    norms = norm_launches()
     if keep is not None:
         keep.update(img=img, out=out)
     steps = d.num_timesteps
     if not (out.shape == img.shape and torch.isfinite(out).all().item()):
         raise AssertionError(f"{type(d.op).__name__} sample: {out.shape}, not finite/shaped")
-    small_want = steps if fronts else 0
-    if (launches, small, wide) != (fronts * steps, small_want, 0):
+    small_want, norms_want = (steps, 0) if fronts else (0, RESNET_NORMS * steps)
+    if (launches, small, wide, norms) != (fronts * steps, small_want, 0, norms_want):
         raise AssertionError(f"{type(d.op).__name__} sample launched {launches} fronts, "
-                             f"{small} small-C, {wide} wide-C; expected {fronts * steps}, "
-                             f"{small_want}, 0")
+                             f"{small} small-C, {wide} wide-C, {norms} GroupNorms; expected "
+                             f"{fronts * steps}, {small_want}, 0, {norms_want}")
     return dict(op=type(d.op).__name__, routine=d.sampling_routine, T=steps, batch=batch,
                 size=size, seconds=seconds, images_per_s=batch / seconds,
                 peak_bytes=torch.cuda.max_memory_allocated(device), base_bytes=base,
-                launches=launches, small_c_launches=small)
+                launches=launches, small_c_launches=small, norm_launches=norms)
 
 
 def log_sample_row(row, card: str, what: str = "") -> None:
@@ -845,7 +877,8 @@ def log_sample_row(row, card: str, what: str = "") -> None:
         f"{row['images_per_s']:.3f} images/s, peak memory {row['peak_bytes']} bytes "
         f"({row['peak_bytes'] / 2**30:.2f} GiB; {row['base_bytes']} allocated before "
         f"the run), front launches {row['launches']}, of "
-        f"them small-C {row['small_c_launches']}; degrade cuda vs cpu rel err "
+        f"them small-C {row['small_c_launches']}, GroupNorm launches "
+        f"{row['norm_launches']}; degrade cuda vs cpu rel err "
         f"{row['degrade_rel_err']:.3e}, oracle rel err {row['oracle_rel_err']:.3e}; "
         f"card: {card}")
 
@@ -894,10 +927,12 @@ def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
     and ``steps`` more, the last with the checkpoint and the EMA sample
     grids when ``snapshot``, with mix's endpoint images when
     ``second_dataset`` is given; checks the losses and the launch counts
-    (``fronts`` a forward: 17 for UnetConvNext, 0 for UnetResNet; one
-    forward a microbatch, two under Final_random_mean_and_actual, plus one
-    a reverse step of the snapshot).  Returns (trainer, train images/s from
-    metrics.jsonl, peak bytes, front launches)."""
+    (``fronts`` a forward: 17 for UnetConvNext, 0 for UnetResNet, whose
+    forward launches RESNET_NORMS GroupNorm-swish kernels instead and whose
+    backward recomputes them in plain PyTorch; one forward a microbatch,
+    two under Final_random_mean_and_actual, plus one a reverse step of the
+    snapshot).  Returns (trainer, train images/s from metrics.jsonl, peak
+    bytes, front launches, GroupNorm-swish launches)."""
     kw = dict(train_batch_size=batch, gradient_accumulate_every=ACCUM, bf16=True,
               save_and_sample_every=(1 + steps) if snapshot else 10**9,
               results_folder=folder, num_workers=8, seed=SEED, device=device,
@@ -910,11 +945,14 @@ def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
     tr.train_num_steps = 1 + steps
     tr.train(log_every=1)
     launches, small, _ = launch_counts()
+    norms = norm_launches()
     per_loss = 2 if d.train_routine == "Final_random_mean_and_actual" else 1
-    want = fronts * (per_loss * ACCUM * steps + (d.num_timesteps if snapshot else 0))
-    if launches != want or small * fronts != want:
+    forwards = per_loss * ACCUM * steps + (d.num_timesteps if snapshot else 0)
+    want, norms_want = fronts * forwards, 0 if fronts else RESNET_NORMS * forwards
+    if launches != want or small * fronts != want or norms != norms_want:
         raise AssertionError(f"{type(d.op).__name__} training launched {launches} fronts "
-                             f"({small} small-C), expected {want}")
+                             f"({small} small-C) and {norms} GroupNorms, expected {want} "
+                             f"and {norms_want}")
     lines = [json.loads(x) for x in tr.metrics_path.read_text().splitlines()]
     losses = [x["loss"] for x in lines]
     if len(lines) != 1 + steps or not all(math.isfinite(v) for v in losses):
@@ -923,7 +961,7 @@ def train_workflow(d: ColdDiffusion, device, folder: str, size: int, steps: int,
         raise AssertionError("snapshot wrote no sample-1.png")
     timed = lines[1:1 + steps - (1 if snapshot else 0)] or lines[1:]
     ips = float(np.median([x["images_per_sec"] for x in timed]))
-    return tr, ips, torch.cuda.max_memory_allocated(device), launches
+    return tr, ips, torch.cuda.max_memory_allocated(device), launches, norms
 
 
 def random_fade_path(device, folder: str, card: str):
@@ -939,8 +977,8 @@ def random_fade_path(device, folder: str, card: str):
     counted = op.to(device)  # a copy whose crop draws are counted
     counted.sample_rng_state = lambda generator, b: (draws.append(b),
                                                      op.sample_rng_state(generator, b))[1]
-    tr, ips, peak, launches = train_workflow(dataclasses.replace(d, op=counted), device,
-                                             folder, 32, 5, snapshot=False)
+    tr, ips, peak, launches, _ = train_workflow(dataclasses.replace(d, op=counted), device,
+                                                folder, 32, 5, snapshot=False)
     tr_op = tr.diffusion.op
     if len(draws) != 6 * ACCUM or not torch.equal(tr_op.offsets.cpu(), op.offsets.cpu()):
         raise AssertionError(f"Random_Incremental training: {len(draws)} crop draws, "
@@ -1051,14 +1089,14 @@ def last_workflows(model, device, folder: str, card: str):
     # 18 and 19: Trainer.train(); mix with its endpoint dataset and a snapshot
     mix_row = next(r for r in rows if r["op"] == "Animorphosis")
     ips, peak, launches = train_workflow(mix, device, folder + "/p18", IMG, 3, snapshot=True,
-                                         second_dataset=second)[1:]
+                                         second_dataset=second)[1:4]
     mix_row.update(train_images_per_s=ips, train_peak_bytes=peak, train_launches=launches)
     log(f"[18] mix Trainer.train() with second_dataset B={BATCH} x accum {ACCUM} {IMG}px "
         f"bf16, 3 steps (the last with save + EMA snapshot, T={T}): {ips:.3f} train "
         f"images/s (median of the 2 steps without the snapshot), peak memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
-    tr, ips, peak, launches = train_workflow(snow, device, folder + "/p19", IMG, 3,
-                                             snapshot=False)
+    tr, ips, peak, launches, _ = train_workflow(snow, device, folder + "/p19", IMG, 3,
+                                                snapshot=False)
     if torch.equal(tr.diffusion.op.snow, snow.op.snow):
         raise AssertionError("random snow: the Trainer's steps did not reset the fields")
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -1095,7 +1133,8 @@ def resnet_cifar(device, folder: str, card: str):
     state and one dropout seed give one loss, another seed another; (e) the
     checkpoint round trip, and load_torch_path of a reference-named blob;
     (e2) ssim, rmse and psnr of the samples on the card vs the CPU.  No
-    front kernel launches here: the JAX twin reaches no Pallas kernel.
+    front kernel launches here (the JAX twin reaches no Pallas kernel);
+    RESNET_NORMS GroupNorm-swish launches a forward, counted in (a)-(c).
     Returns the phase's row."""
     t_phase = time.perf_counter()
     # (a)
@@ -1111,11 +1150,13 @@ def resnet_cifar(device, folder: str, card: str):
     del model_cpu
     rel = rel_l2(got, want)
     params = sum(p.numel() for p in model.parameters())
-    if not (rel <= UNET_REL_L2 and launch_counts() == (0, 0, 0)):
+    if not (rel <= UNET_REL_L2 and launch_counts() == (0, 0, 0)
+            and norm_launches() == RESNET_NORMS):
         raise AssertionError(f"ResNet UNet fp32 cuda vs cpu: rel L2 {rel}, front launches "
-                             f"{launch_counts()}")
+                             f"{launch_counts()}, GroupNorm launches {norm_launches()}")
     log(f"[21a] UnetResNet CIFAR-10 ({params} parameters) fp32 cuda vs cpu rel L2 "
-        f"{rel:.3e} (<= {UNET_REL_L2}), front launches 0")
+        f"{rel:.3e} (<= {UNET_REL_L2}), front launches 0, GroupNorm launches "
+        f"{RESNET_NORMS}")
     # (b)
     d = cifar_blur(device)
     deg, oracle = check_operator(d, CIFAR, device)
@@ -1127,14 +1168,15 @@ def resnet_cifar(device, folder: str, card: str):
                oracle_rel_err=oracle)
     log_sample_row(row, card, " UnetResNet")
     # (c)
-    tr, ips, peak, launches = train_workflow(d, device, folder + "/train", CIFAR, 2,
-                                             snapshot=False, model=seeded_resnet(SEED, device),
-                                             batch=RESNET_BATCH, fronts=0)
+    tr, ips, peak, launches, norms = train_workflow(
+        d, device, folder + "/train", CIFAR, 2, snapshot=False,
+        model=seeded_resnet(SEED, device), batch=RESNET_BATCH, fronts=0)
     step_ms = 1e3 * RESNET_BATCH * ACCUM / ips
     log(f"[21c] UnetResNet Trainer.train() B={RESNET_BATCH} x accum {ACCUM} {CIFAR}px bf16, "
         f"dropout 0.1 from the Trainer's dropout generator: {ips:.3f} train images/s "
         f"(median of 2 steps), {step_ms:.3f} ms per optimizer step, peak memory {peak} bytes "
-        f"({peak / 2**30:.2f} GiB), front launches {launches}; card: {card}")
+        f"({peak / 2**30:.2f} GiB), front launches {launches}, GroupNorm launches {norms}; "
+        f"card: {card}")
     # (d)
     blob = copy.deepcopy(tr.state())
     batch = tr._next_superbatch()
@@ -1194,7 +1236,7 @@ def resnet_cifar(device, folder: str, card: str):
         f"{k} {v:.6f} (card vs cpu rel err {e:.3e})" for k, (v, e) in scores.items()))
     seconds = time.perf_counter() - t_phase
     row.update(train_images_per_s=ips, train_step_ms=step_ms, train_peak_bytes=peak,
-               train_launches=launches, dropout_losses=losses,
+               train_launches=launches, train_norm_launches=norms, dropout_losses=losses,
                metrics={k: v for k, (v, _) in scores.items()}, phase_seconds=seconds)
     log(f"[21] phase seconds {seconds:.2f}")
     return row
@@ -1225,19 +1267,20 @@ def routine_workflows(device, folder: str, card: str):
         d = ColdDiffusion(op=op, image_size=size, train_routine=routine,
                           sampling_routine="x0_step_down")
         model = None if fronts else seeded_resnet(SEED, device)
-        ips, peak, launches = train_workflow(d, device, f"{folder}/{routine}", size,
-                                             ROUTINE_STEPS, snapshot=False, model=model,
-                                             fronts=fronts)[1:]
+        ips, peak, launches, norms = train_workflow(d, device, f"{folder}/{routine}", size,
+                                                    ROUTINE_STEPS, snapshot=False,
+                                                    model=model, fronts=fronts)[1:]
         row = sample_path(d, models16[fronts], device, BATCH, size, fronts=fronts)
         row.update(phase="22", train_routine=routine,
                    model="UnetConvNext" if fronts else "UnetResNet", train_images_per_s=ips,
-                   train_peak_bytes=peak, train_launches=launches,
+                   train_peak_bytes=peak, train_launches=launches, train_norm_launches=norms,
                    seconds_total=time.perf_counter() - t0)
         log(f"[22] {routine} {row['op']} T={row['T']} {size}px {row['model']} B={BATCH}: "
             f"Trainer.train() x accum {ACCUM} bf16 {ips:.3f} train images/s (median of "
-            f"{ROUTINE_STEPS}), peak {peak} bytes, front launches {launches}; sample "
-            f"{row['images_per_s']:.3f} images/s, peak {row['peak_bytes']} bytes, front "
-            f"launches {row['launches']}, of them small-C {row['small_c_launches']}; "
+            f"{ROUTINE_STEPS}), peak {peak} bytes, front launches {launches}, GroupNorm "
+            f"launches {norms}; sample {row['images_per_s']:.3f} images/s, peak "
+            f"{row['peak_bytes']} bytes, front launches {row['launches']}, of them small-C "
+            f"{row['small_c_launches']}, GroupNorm launches {row['norm_launches']}; "
             f"{row['seconds_total']:.2f} s; card: {card}")
         rows.append(row)
     log(f"[22] phase seconds {time.perf_counter() - t_phase:.2f}")
@@ -1273,21 +1316,27 @@ def multi_step_path(device, card: str):
     for dev in (device, torch.device("cpu")):
         model = seeded_resnet(SEED, dev)
         dd = dataclasses.replace(d, op=d.op.to(dev))
+        zero_launches()
         t0 = time.perf_counter()
         outs.append(sample_multi_step(dd, lambda x, t: model(x, t), start[:n].to(dev),
                                       t_start[:n].to(dev), t_end[:n].to(dev)).cpu())
         secs.append(time.perf_counter() - t0)
+        if dev == device:
+            norms = norm_launches()
     rel = rel_l2(*outs)
-    if not rel <= UNET_REL_L2:
-        raise AssertionError(f"sample_multi_step fp32 cuda vs cpu: rel L2 {rel}")
     iters = int((t_start[:n] - t_end[:n]).max())
+    if not (rel <= UNET_REL_L2 and norms == RESNET_NORMS * iters):
+        raise AssertionError(f"sample_multi_step fp32 cuda vs cpu: rel L2 {rel}, GroupNorm "
+                             f"launches {norms} in {iters} iterations")
     seconds = time.perf_counter() - t_phase
     log(f"[23] sample_multi_step blur Special_6 T={CIFAR_T} {CIFAR}px B={RESNET_BATCH}, "
         f"t_start {t_start.tolist()}, t_end {t_end.tolist()}: oracle max err {err:.3e} "
         f"(<= {ORACLE_ATOL}) in {oracle_s:.3f} s; fp32 UnetResNet B={n} ({iters} "
-        f"iterations) cuda vs cpu rel L2 {rel:.3e} (<= {UNET_REL_L2}), cuda "
+        f"iterations, {norms} GroupNorm launches) cuda vs cpu rel L2 {rel:.3e} (<= "
+        f"{UNET_REL_L2}), cuda "
         f"{secs[0]:.3f} s, cpu {secs[1]:.3f} s; phase seconds {seconds:.2f}; card: {card}")
     return dict(phase="23", oracle_max_err=err, rel_l2=rel, iterations=iters,
+                norm_launches=norms,
                 oracle_seconds=oracle_s, cuda_seconds=secs[0], phase_seconds=seconds)
 
 
@@ -1899,8 +1948,8 @@ def spatial_workflows(card: str) -> dict:
                 f"forward rel L2 {r['forward_rel_l2']:.3e} {r['collectives_by_kind']}; "
                 f"{r['dtype']} sample from level {r['depth']} rel L2 "
                 f"{r['samples_rel_l2']:.3e} (<= {r['samples_bound']:.3e}"
-                + (f"; one process an image at a time: {r['split_rel_l2']:.3e}"
-                   if "split_rel_l2" in r else "") + "); front "
+                + (f"; one process an image at a time, GroupNorms on the plain chain: "
+                   f"{r['split_rel_l2']:.3e}" if "split_rel_l2" in r else "") + "); front "
                 f"launches per process {r['launches']} (one process {r['launches_1']}); wall "
                 f"s per process {r['seconds']} vs one process {r['seconds_1']:.3f}")
     loss = res["loss"]
@@ -2332,6 +2381,161 @@ def probe_kernels(device):
     return rows, floor
 
 
+def resnet_norm_calls(device) -> Counter:
+    """(C, H, swish) -> calls of ``group_norm_swish`` in one forward of the
+    CIFAR-10 ResNet of ``get_model``, from a forward pre-hook on each
+    ``FusedGroupNormSwish``; the forward's kernel launches checked to be
+    one a call."""
+    model = seeded_resnet(SEED, device).to(torch.bfloat16)
+    calls = Counter()
+
+    def hook(m, args):
+        calls[(args[0].shape[1], args[0].shape[2], m.swish)] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, layers.FusedGroupNormSwish)]
+    before = gn_ops.group_norm_swish.launches
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(2, CIFAR, CIFAR, 3, device=device, dtype=torch.bfloat16),
+                  torch.tensor([1, 2], device=device))
+    finally:
+        for h in handles:
+            h.remove()
+    launched = gn_ops.group_norm_swish.launches - before
+    if launched != sum(calls.values()):
+        raise AssertionError(f"a ResNet forward made {sum(calls.values())} GroupNorm-swish "
+                             f"calls and {launched} kernel launches")
+    return calls
+
+
+def group_norm_row(gen, b, c, h, swish, device, timed=True) -> dict:
+    """The kernel against the plain version at [b, c, h, h] bf16 (and fp32
+    when not ``timed``), its form, and, when ``timed``, its device time
+    beside the plain chain's, ``F.group_norm``'s (one call, its own affine
+    before any rounding: a yardstick, not the same function) and the bound:
+    x read once, the output written once, gamma and beta read once."""
+    row = dict(shape=[b, c, h, h], swish=swish)
+    for dtype in (torch.bfloat16,) if timed else (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        x = (torch.randn(b, c, h, h, generator=gen, device=device) * 2 + 0.5).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        gamma = (torch.rand(c, generator=gen, device=device) + 0.5).to(dtype)
+        beta = (torch.randn(c, generator=gen, device=device) * 0.1).to(dtype)
+        args = (x, gamma, beta, 32, 1e-6, swish)
+        got = gn_ops.group_norm_swish(*args)
+        want = gn_ops.group_norm_swish_plain(*args)
+        if not torch.equal(got, gn_ops.group_norm_swish(*args)):
+            raise AssertionError(f"group_norm_swish {row['shape']} {tag}: two runs differ")
+        err = (got.float() - want.float()).abs()
+        share = (got != want).float().mean().item()
+        tol = GN_BF16_TOL if dtype == torch.bfloat16 else GN_FP32_TOL
+        if not (bool((err <= tol + tol * want.float().abs()).all())
+                and (dtype == torch.float32 or share <= GN_BF16_MISMATCH)):
+            raise AssertionError(f"group_norm_swish {row['shape']} {tag}: max err "
+                                 f"{err.max().item()}, elements not equal {share}")
+        row.update({f"form_{tag}": gn_ops.kernel_form(h * h, c, dtype),
+                    f"max_abs_err_{tag}": err.max().item(), f"not_equal_{tag}": share})
+    if timed:
+        bound_ms, bound_by = bound(2 * x.nbytes + gamma.nbytes + beta.nbytes, 0)
+        row.update(bound_us=1e3 * bound_ms, bound_by=bound_by)
+        timed_row(row, "ms", lambda: gn_ops.group_norm_swish(*args))
+        timed_row(row, "plain_ms", lambda: gn_ops.group_norm_swish_plain(*args), PLAIN_RUN)
+        timed_row(row, "library_ms", lambda: F.group_norm(x, 32, gamma, beta, 1e-6))
+        row["bound_share"] = bound_ms / row["ms"]
+    return row
+
+
+def resnet_train_steps(device, folder: str, plain: bool):
+    """Median wall ms of GN_TRAIN_STEPS bf16 ``Trainer.train_step`` calls of
+    the CIFAR-10 ResNet at B=GN_TRAIN_BATCH (dropout 0.1), after 3 warm-up
+    steps, and the kernel's launches over the timed steps.  ``plain``: every
+    GroupNorm-swish runs the plain chain under direct autograd, the path
+    before the kernel.  (The two paths alternated step by step in one
+    Trainer slowed the plain one to 190-280 ms a step.)"""
+    kernel = gn_ops.group_norm_swish
+    patch = (mock.patch.object(gn_ops, "group_norm_swish", gn_ops.group_norm_swish_plain)
+             if plain else contextlib.nullcontext())
+    tr = Trainer(cifar_blur(device), seeded_resnet(SEED, device),
+                 SyntheticDataset(CIFAR, 3, length=4 * GN_TRAIN_BATCH),
+                 train_batch_size=GN_TRAIN_BATCH, gradient_accumulate_every=1, bf16=True,
+                 num_workers=1, seed=SEED, device=device, results_folder=folder)
+    times, losses = [], []
+    with patch:
+        for _ in range(3):
+            tr.train_step(tr._next_superbatch())
+        before = kernel.launches
+        for _ in range(GN_TRAIN_STEPS):
+            batch = tr._next_superbatch()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(batch).item())
+            torch.cuda.synchronize(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ResNet train steps ({'plain' if plain else 'kernel'}): "
+                             f"losses {losses}")
+    return float(np.median(times)), kernel.launches - before
+
+
+def group_norm_kernel(device, card: str):
+    """Phase 32: the GroupNorm-swish kernel (``csrc/group_norm_swish.cu``),
+    which replaces no TPU kernel: at each (C, H, swish) of a CIFAR-10
+    ResNet forward, at B=GN_BATCH in bf16, against the plain version
+    (two runs bitwise equal), timed beside its bound, the plain chain and
+    ``F.group_norm``, and summed over the forward's 51 calls; the streaming
+    form at GN_STREAM_SHAPES in bf16 and fp32; then the ResNet's bf16
+    train step at B=GN_TRAIN_BATCH on the plain path and the kernel's, a
+    Trainer a turn.  Returns the phase's row."""
+    t_phase = time.perf_counter()
+    calls = resnet_norm_calls(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    rows = []
+    for (c, h, swish), n in sorted(calls.items()):
+        row = group_norm_row(gen, GN_BATCH, c, h, swish, device)
+        row["calls"] = n
+        rows.append(row)
+        log(f"[32] {row['shape']} swish {swish} x{n}: {row['ms'] * 1e3:.3f} us, bound "
+            f"{row['bound_us']:.3f} us ({100 * row['bound_share']:.2f}%), plain "
+            f"{row['plain_ms'] * 1e3:.3f} us, F.group_norm {row['library_ms'] * 1e3:.3f} us; "
+            f"form {row['form_bf16']}, max err {row['max_abs_err_bf16']:.3e}, not equal "
+            f"{row['not_equal_bf16']:.2e}" + (f"; host-paced: {row['host_paced']}"
+                                              if "host_paced" in row else ""))
+    total = {k: sum(r["calls"] * r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_us")}
+    n_calls = sum(calls.values())
+    log(f"[32] the {n_calls} GroupNorm-swish calls of a forward at B={GN_BATCH} bf16: kernel "
+        f"{total['ms']:.4f} ms, bound {total['bound_us'] / 1e3:.4f} ms "
+        f"({100 * total['bound_us'] / 1e3 / total['ms']:.2f}%), plain {total['plain_ms']:.4f} "
+        f"ms, F.group_norm {total['library_ms']:.4f} ms; card: {card}")
+    stream = [group_norm_row(gen, GN_STREAM_BATCH, c, h, True, device, timed=False)
+              for c, h in GN_STREAM_SHAPES]
+    for r in stream:
+        if not (r["form_bf16"]["chunks"] > 1 and r["form_fp32"]["chunks"] > 1):
+            raise AssertionError(f"{r['shape']} did not take the streaming form: {r}")
+        log(f"[32] streaming form {r['shape']}: bf16 {r['form_bf16']} max err "
+            f"{r['max_abs_err_bf16']:.3e}; fp32 {r['form_fp32']} max err "
+            f"{r['max_abs_err_fp32']:.3e}")
+    train = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for i, plain in enumerate((True, False, False, True)):
+            ms, launched = resnet_train_steps(device, f"{folder}/{i}", plain)
+            train.setdefault("plain" if plain else "kernel", []).append((ms, launched))
+            reset_peak(device)
+    if {n for _, n in train["plain"]} != {0} or {n for _, n in train["kernel"]} != {
+            n_calls * GN_TRAIN_STEPS}:
+        raise AssertionError(f"train-step launches {train}: one forward a step launches "
+                             f"{n_calls}, its backward recomputes in plain PyTorch")
+    log(f"[32] ResNet bf16 train step B={GN_TRAIN_BATCH} (median of {GN_TRAIN_STEPS}), "
+        f"one Trainer a turn, plain, kernel, kernel, plain: plain "
+        f"{[round(ms, 3) for ms, _ in train['plain']]} ms, kernel "
+        f"{[round(ms, 3) for ms, _ in train['kernel']]} ms; card: {card}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[32] phase seconds {seconds:.2f}")
+    return dict(phase="32", rows=rows, total=total, calls=n_calls, stream=stream,
+                train_step_ms=train, phase_seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2513,7 +2717,7 @@ def main() -> int:
                           image_size=IMG, sampling_routine="x0_step_down")
         # the Trainer itself is not kept: later phases measure peak memory
         ips, peak, fg_launches = train_workflow(d, dev, folder + "/p14", IMG, 3,
-                                                snapshot=True)[1:]
+                                                snapshot=True)[1:4]
         fgen_row.update(train_images_per_s=ips, train_peak_bytes=peak,
                         train_launches=fg_launches)
         log(f"[14] fade_generation Trainer.train() B={BATCH} x accum {ACCUM} {IMG}px bf16, "
@@ -2573,6 +2777,11 @@ def main() -> int:
     # 31. the JAX package's initialisation, through the CLI's build
     log("[31] " + json.dumps(init_rule(dev, card), default=float))
 
+    # 32. the GroupNorm-swish kernel
+    reset_peak(dev)
+    gn_row = group_norm_kernel(dev, card)
+    log("[32] " + json.dumps(gn_row, default=float))
+
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16
         (the main path's dtype); max_abs_err is fp32, over its fronts."""
@@ -2610,6 +2819,20 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_us": r["bound_us"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "float4_path": r.get("float4_path"),
     } for r in probes]
+    gn_big = max(gn_row["rows"], key=lambda r: r["calls"] * r["ms"])
+    kernels.append({
+        "name": "group_norm_swish", "kernel": "group_norm_swish_kernel", "route": "cuda",
+        "source": "colddiff_torch/csrc/group_norm_swish.cu",
+        "replaces": "none (colddiff/models/layers.py:92-95: XLA's fusion, no Pallas kernel)",
+        # launches: phase 21's bf16 sample (T forwards) and its Trainer's steps
+        "launches": late[0]["norm_launches"], "train_launches": late[0]["train_norm_launches"],
+        "max_abs_err": max(r["max_abs_err_bf16"] for r in gn_row["rows"]),
+        "shape": gn_big["shape"], "dtype": "bfloat16", "ms": gn_big["ms"],
+        "plain_ms": gn_big["plain_ms"], "library_ms": gn_big["library_ms"],
+        "bound_ms": gn_big["bound_us"] / 1e3, "bound_us": gn_big["bound_us"],
+        "bound_by": gn_big["bound_by"], "forward_ms": gn_row["total"]["ms"],
+        "forward_bound_ms": gn_row["total"]["bound_us"] / 1e3,
+    })
     log(f"[27] front launches of the row-sharded T={T} sample, per process: "
         f"{space_row['dryrun']['launches']} (17 x {T}; one process {space_row['dryrun']['launches_1']})")
     log("[28] front launches of the row-sharded samples, per process: " + ", ".join(

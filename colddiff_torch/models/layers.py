@@ -5,8 +5,8 @@ family's GroupNorm-swish, softmax attention and ``swish``, with Flax's
 dropout.  Module and parameter names are the reference's torch names
 (deblurring_diffusion_pytorch.py:83-187, Model2.py:6-188), so a reference
 state dict loads with ``load_state_dict`` and no conversion.  The ResNet
-layers are stock torch ops: the JAX package computes them outside any
-Pallas kernel.
+layers are stock torch ops, but for the GroupNorm-swish, which runs as one
+hand-written kernel on the card (``ops/group_norm.py``).
 
 Inside ``parallel.image_rows`` both families' pieces run on this
 process's block of the image rows: the front and the 3x3, Downsample and
@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm
 from ..ops.convnext_front import convnext_front
 from ..parallel import spatial
 from ..parallel.mesh import draw_rows
@@ -282,24 +283,12 @@ def group_norm_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """GroupNorm of [B, C, H, W] ``x`` + optional swish (Model2.py Normalize
     :32-33, nonlinearity :27-29), in the JAX package's order: statistics in
     at least fp32, the normalized value cast to ``x``'s dtype, then
-    ``* gamma + beta`` in that dtype (``F.group_norm``'s own affine would
-    run before the cast).
-
-    Inside a row-sharded ``parallel.image_rows`` the (C/G, H, W) statistics
-    are the whole images': the mean, then the mean of the squared
-    deviations from it (what ``jnp.var`` computes), two group means and so
-    two all-reduces a norm; ``F.group_norm`` takes no outside statistics,
-    so the block is normalized explicitly."""
+    ``* gamma + beta`` in that dtype.  ``ops.group_norm.group_norm_swish``
+    inside the ``unet.group_norm`` span: the hand-written kernel on a CUDA
+    tensor, the plain version on a CPU one, and the whole images' statistics
+    inside a row-sharded ``parallel.image_rows``."""
     with span("unet.group_norm"):
-        if spatial.current() is None:
-            xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
-        else:
-            xg = x.to(_stat_dtype(x)).unflatten(1, (num_groups, -1))  # [B, G, C/G, h, W]
-            dev = xg - spatial.group_mean(xg, (2, 3, 4))
-            var = spatial.group_mean(dev.square(), (2, 3, 4))
-            xn = (dev * torch.rsqrt(var + eps)).flatten(1, 2).to(x.dtype)
-        xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
-        return F.silu(xn) if swish else xn
+        return group_norm.group_norm_swish(x, gamma, beta, num_groups, eps, swish)
 
 
 class FusedGroupNormSwish(nn.GroupNorm):

@@ -12,8 +12,9 @@ unet_resnet.py), so its state-dict names are the reference's:
 ``forward`` takes and returns NHWC images, like the JAX module; inside, the
 activations are NCHW tensors in ``torch.channels_last`` memory.  Dropout
 draws its masks only from the ``generator`` passed to ``forward``
-(``layers.dropout``).  No hand-written kernel runs here: the JAX twin
-reaches no Pallas kernel.
+(``layers.dropout``).  Its 51 GroupNorm-swish calls (at the CIFAR-10
+configuration) launch the hand-written kernel of ``ops/group_norm.py`` on
+the card; the JAX twin reaches no Pallas kernel.
 
 Inside ``parallel.image_rows`` the forward runs on this process's block of
 the image rows: the 3x3 convs take halos (``layers.RowConv2d``), the conv

@@ -87,6 +87,7 @@ import tempfile
 import time
 from collections import Counter
 from typing import Optional
+from unittest import mock
 
 import torch
 
@@ -553,8 +554,13 @@ def _workflow_run(name: str, cfg: Config, model, dev, n: int, place=None) -> dic
     then a bf16 (for the flagship; for its ResNet fp32 too) prepare_start
     + sample from level ``min(T, SAMPLE_DEPTH)`` (T for the
     ResNet), timed, with its front launches.  On whole images of more than
-    one, the ResNet's samples are also run an image at a time (``split``):
-    how far the rounding of another batch shape moves them."""
+    one, the ResNet's samples are also run with its GroupNorms on the plain
+    chain, whole (``split_whole``) and an image at a time (``split``): how
+    far the rounding of another batch shape moves them.  (The GroupNorm
+    kernel and the convs give an image the same bits at any batch on the
+    card, so the kernel's own samples would not show bf16's rounding; the
+    plain chain keeps the measure apart from the kernel under test.)"""
+    from ..ops import group_norm
     from ..ops.convnext_front import convnext_front
     from ..parallel import spatial
     from ..sampling import prepare_start, sample
@@ -614,9 +620,12 @@ def _workflow_run(name: str, cfg: Config, model, dev, n: int, place=None) -> dic
                     row["seconds"] = time.perf_counter() - t0
                     row["launches"] = convnext_front.launches
                     if place is None and n > 1 and wf.resnet:
-                        row["split"] = torch.cat([run(d, denoise, og[i:i + 1], None if x_end
-                                                      is None else x_end[i:i + 1])
-                                                  for i in range(n)]).cpu()
+                        with mock.patch.object(group_norm, "group_norm_swish",
+                                               group_norm.group_norm_swish_plain):
+                            row["split"] = torch.cat([run(d, denoise, og[i:i + 1], None if x_end
+                                                          is None else x_end[i:i + 1])
+                                                      for i in range(n)]).cpu()
+                            row["split_whole"] = run(d, denoise, og, x_end).cpu()
                 row["samples"] = whole(out).cpu()
                 res["rows"].append(row)
     return res
@@ -698,7 +707,8 @@ def check_workflows(got: dict, cfg: Config, dev: torch.device, weights: Optional
     2e-5; flagship and the ResNet: rel L2 <= 1e-3 in fp32, and in bf16 <=
     2e-2, for the ResNet's T=50 sample or twice its ``split`` one where
     more: bf16 rounding alone, one process's same images run an image at a
-    time, moves it by ~4e-2), the draws equal, the front launches (17 a forward of
+    time with the GroupNorms on the plain chain, moves it by ~4e-2), the
+    draws equal, the front launches (17 a forward of
     the UnetConvNext, 0 of the ResNet, on the card); the loss (rtol 1e-5)
     and its group-summed gradients (rel L2 <= 1e-3).  Returns the summary
     (raises if a check does not hold)."""
@@ -747,7 +757,7 @@ def check_workflows(got: dict, cfg: Config, dev: torch.device, weights: Optional
                        forward_max_err=(r["forward"] - r1["forward"]).abs().max().item(),
                        samples_max_err=(r["samples"] - r1["samples"]).abs().max().item())
             if "split" in r1:
-                row["split_rel_l2"] = _rel_l2(r1["split"], r1["samples"])
+                row["split_rel_l2"] = _rel_l2(r1["split"], r1["split_whole"])
             if flagship or wf.resnet:
                 # the tiny ResNet too: its GroupNorms see the blurred start
                 # nearly flat, a variance near their eps that scales the

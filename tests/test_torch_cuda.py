@@ -12,6 +12,7 @@ import torch
 
 from colddiff_torch.models import UnetConvNext
 from colddiff_torch.ops import convnext_front as front_mod
+from colddiff_torch.ops import group_norm as gn_mod
 from colddiff_torch.ops.convnext_front import (MAX_CHANNELS, SMALL_C, TILE_MAX_CHANNELS,
                                               convnext_front, convnext_front_plain)
 
@@ -643,3 +644,125 @@ def test_span_markers_pair_with_boundaries_on_the_profilers_clock(cuda, tmp_path
     assert lags[0] < 1_000_000
     print(f"shared clock: idle-card marker {lags[0]} ns after its boundary; "
           f"lags {min(lags)}-{max(lags)} ns over {len(lags)} boundaries")
+
+
+# the (C, H) of the CIFAR-10 ResNet's 51 GroupNorm-swish calls a forward
+GN_SHAPES = [(256, 4), (256, 16), (128, 32), (256, 8), (512, 4), (512, 8), (512, 16),
+             (256, 32), (128, 16), (384, 16), (384, 32)]
+# the streaming form: images larger than a cluster's registers, at 64 and 128 px
+GN_STREAM_SHAPES = [(256, 64), (128, 128)]
+
+
+def _gn_args(gen, b, c, h, dtype, device):
+    x = (torch.randn(b, c, h, h, generator=gen, device=device) * 2 + 0.5).to(dtype)
+    gamma = (torch.rand(c, generator=gen, device=device) + 0.5).to(dtype)
+    beta = (torch.randn(c, generator=gen, device=device) * 0.1).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last), gamma, beta
+
+
+def _check_gn(got, want):
+    """The kernel against the plain version on the card.  fp32: the
+    statistics' summation order only (1e-5).  bf16: each rounds the same
+    values at the same points, but a normalized value that lies near a
+    rounding boundary may land on the other bf16 neighbour in one of them,
+    and that ulp carries through the rounded product with gamma and sum with
+    beta: two bf16 ulps (2**-6 relative), on at most 1% of the elements."""
+    assert got.dtype == want.dtype and got.is_contiguous(memory_format=torch.channels_last)
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6, atol=2 ** -6)
+    assert (got != want).float().mean().item() <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swish", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", GN_SHAPES + GN_STREAM_SHAPES)
+def test_group_norm_kernel_matches_plain(cuda, c, h, dtype, swish):
+    """At an odd batch; the ResNet's shapes keep the image on chip in bf16,
+    the 64 and 128 px ones take the streaming form."""
+    gen = torch.Generator(device=cuda).manual_seed(c * h)
+    x, gamma, beta = _gn_args(gen, 3, c, h, dtype, cuda)
+    before = gn_mod.group_norm_swish.launches
+    got = gn_mod.group_norm_swish(x, gamma, beta, 32, 1e-6, swish)
+    torch.cuda.synchronize()
+    assert gn_mod.group_norm_swish.launches == before + 1
+    chunks = gn_mod.kernel_form(h * h, c, dtype)["chunks"]
+    if (c, h) in GN_STREAM_SHAPES:
+        assert chunks > 1
+    elif dtype == torch.bfloat16:
+        assert chunks == 1
+    _check_gn(got, gn_mod.group_norm_swish_plain(x, gamma, beta, 32, 1e-6, swish))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(256, 4), (384, 32), (128, 128)])
+def test_group_norm_kernel_is_deterministic(cuda, c, h):
+    """One block, a cluster of 7 and the streaming form: two runs bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, gamma, beta = _gn_args(gen, 5, c, h, torch.bfloat16, cuda)
+    runs = [gn_mod.group_norm_swish(x, gamma, beta, 32) for _ in range(2)]
+    assert torch.equal(*runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_gradients_equal_plain_autograd(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args = _gn_args(gen, 3, 128, 16, dtype, cuda)
+    w = torch.randn(3, 128, 16, 16, generator=gen, device=cuda).to(dtype)
+    grads = []
+    for fn in (gn_mod.group_norm_swish, gn_mod.group_norm_swish_plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        (fn(*leaves, 32, 1e-6, True).float() * w).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_group_norm_bf16_swish_rounds_as_f_silu(cuda):
+    """The kernel's bf16 swish (the hardware's exp2 and reciprocal) gives
+    F.silu of its output without swish, bitwise, for y over [-80, 80]:
+    gamma from 2**-6 to 2**3.8 spreads the normalized values over the range."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, _, beta = _gn_args(gen, 8, 512, 32, torch.bfloat16, cuda)
+    gamma = (2.0 ** torch.linspace(-6, 3.8, 512, device=cuda)).to(torch.bfloat16)
+    y = gn_mod.group_norm_swish(x, gamma, beta, 32, 1e-6, False)
+    assert y.abs().max().item() <= 80 and y.unique().numel() > 4000
+    assert torch.equal(gn_mod.group_norm_swish(x, gamma, beta, 32, 1e-6, True),
+                       torch.nn.functional.silu(y))
+
+
+@pytest.mark.cuda
+def test_cifar_resnet_forward_launches_51_group_norms(cuda):
+    from colddiff_torch.models import get_model
+
+    model = get_model("UnetResNet", dataset="cifar10").to(cuda).to(torch.bfloat16).eval()
+    x = torch.rand(2, 32, 32, 3, device=cuda, dtype=torch.bfloat16) * 2 - 1
+    before = gn_mod.group_norm_swish.launches, gn_mod.group_norm_swish.row_sharded_calls
+    with torch.inference_mode():
+        model(x, torch.tensor([3, 40], device=cuda))
+    assert (gn_mod.group_norm_swish.launches - before[0],
+            gn_mod.group_norm_swish.row_sharded_calls - before[1]) == (51, 0)
+
+
+@pytest.mark.cuda
+def test_group_norm_refuses_what_the_kernel_does_not_take(cuda):
+    """NCHW memory, a dtype other than fp32 / bf16, C not split by the
+    groups and a gamma wider than x raise; nothing launches."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, gamma, beta = _gn_args(gen, 2, 64, 8, torch.bfloat16, cuda)
+    before = gn_mod.group_norm_swish.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        gn_mod.group_norm_swish(x.contiguous(), gamma, beta, 32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gn_mod.group_norm_swish(x.half(), gamma.half(), beta.half(), 32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gn_mod.group_norm_swish(x.double(), gamma.double(), beta.double(), 32)
+    with pytest.raises(ValueError, match="groups"):
+        gn_mod.group_norm_swish(x, gamma, beta, 24)
+    with pytest.raises(TypeError, match="wider"):
+        gn_mod.group_norm_swish(x, gamma.float(), beta, 32)
+    assert gn_mod.group_norm_swish.launches == before

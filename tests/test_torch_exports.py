@@ -35,7 +35,8 @@ NO_TWIN = {
     "eval/torch_inception_ref.py": "a torch transcription that checks the JAX Inception "
                                    "graph; the port's eval/fid.py is that graph in torch",
     "ops/pallas/__init__.py": "the Pallas package's roster; the port's kernels are "
-                              "ops/convnext_front.py and ops/bisect_mosaic.py",
+                              "ops/convnext_front.py, ops/bisect_mosaic.py and "
+                              "ops/group_norm.py",
 }
 # public JAX names a twin lacks, by design
 GAPS = {

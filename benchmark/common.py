@@ -119,19 +119,10 @@ def make_weights(model: nn.Module, seed: int, device) -> dict:
 
 def port_model(config: dict, weights: dict, device):
     """The port's UNet of the configuration, holding ``weights``."""
-    from colddiff_torch.models import UnetConvNext, UnetResNet
+    from . import families
 
-    m, c = config["model"], config["channels"]
-    with torch.device("meta"):  # the benchmark's weights replace the port's own draw
-        if m["family"] == "UnetConvNext":
-            model = UnetConvNext(m["dim"], dim_mults=tuple(m["dim_mults"]), channels=c)
-        else:
-            model = UnetResNet(m["ch"], out_ch=c, ch_mult=tuple(m["ch_mult"]),
-                               num_res_blocks=m["num_res_blocks"],
-                               attn_resolutions=tuple(m["attn_resolutions"]),
-                               dropout=m["dropout"], in_channels=c,
-                               resolution=config["image_size"])
-    model = model.to_empty(device=device)
+    # built on the meta device: the benchmark's weights replace the port's own draw
+    model = families.find(config).port(config).to_empty(device=device)
     model.load_state_dict(weights)
     return model
 

@@ -4,8 +4,9 @@ H100's published peaks (SXM, dense; NVIDIA's data sheet, at 700 W).
 The model FLOPs of a forward are the convolutions and matrix products of
 the plain reference model, counted by ``FlopCounterMode`` on the meta
 device: elementwise work and norms are left out.  The ConvNeXt block fronts
-are listed from the configuration's block list, each with the least time
-the card could take for it (``front_bound``, a copy of ``chip_smoke``'s).
+are listed by their family file from the configuration's block list, each
+with the least time the card could take for it (``front_bound``, a copy of
+``chip_smoke``'s).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import json
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from . import families
 from .reference import models
 
 PEAK_BF16_FLOPS = 989e12  # tensor cores, bf16 dense
@@ -41,32 +43,12 @@ def forward_flops(config: dict) -> int:
 
 
 def fronts(config: dict) -> list[dict]:
-    """The block fronts of one ``UnetConvNext`` forward, in launch order:
-    side ``h``, channels ``c``, whether a time conditioning is added and
-    whether the LayerNorm runs (none for another model family)."""
-    m = config["model"]
-    if m["family"] != "UnetConvNext":
-        return []
-    dims = [config["channels"]] + [m["dim"] * k for k in m["dim_mults"]]
-    in_out = list(zip(dims[:-1], dims[1:]))
-    res, out = config["image_size"], []
-
-    def add(c, cond=True, norm=True):
-        out.append({"h": res, "c": c, "cond": cond, "norm": norm})
-
-    for i, (d_in, d_out) in enumerate(in_out):
-        add(d_in, norm=i != 0)
-        add(d_out)
-        if i != len(in_out) - 1:
-            res //= 2
-    add(dims[-1])
-    add(dims[-1])
-    for d_in, d_out in reversed(in_out[1:]):
-        add(d_out * 2)
-        add(d_in)
-        res *= 2
-    add(m["dim"], cond=False)
-    return out
+    """The block fronts of one forward, in launch order, as the family file's
+    optional ``fronts(config)`` lists them: side ``h``, channels ``c``,
+    whether a time conditioning is added and whether the LayerNorm runs
+    (none for a family that defines no ``fronts``)."""
+    family = families.find(config)
+    return family.fronts(config) if hasattr(family, "fronts") else []
 
 
 def bound(nbytes: float, flops: float):

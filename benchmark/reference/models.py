@@ -323,12 +323,8 @@ class UnetResNet(nn.Module):
 
 
 def build(config: dict) -> nn.Module:
-    """The reference UNet of a benchmark configuration (``configs/*.json``)."""
-    m = config["model"]
-    if m["family"] == "UnetConvNext":
-        return UnetConvNext(m["dim"], tuple(m["dim_mults"]), config["channels"])
-    if m["family"] == "UnetResNet":
-        return UnetResNet(m["ch"], tuple(m["ch_mult"]), m["num_res_blocks"],
-                          tuple(m["attn_resolutions"]), config["image_size"],
-                          config["channels"])
-    raise ValueError(f"no reference for model family {m['family']!r}")
+    """The reference UNet of a benchmark configuration (``configs/*.json``),
+    from its family's file (``benchmark/families/<family>.py``)."""
+    from .. import families  # here, not above: the family files import this module
+
+    return families.find(config).reference(config)

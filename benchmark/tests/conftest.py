@@ -29,7 +29,7 @@ def card():
 
 
 TRAIN = "celeba128_deblur_convnext.train_b128x2"
-SAMPLE = "cifar10_deblur_resnet.sample_b256"
+SAMPLE = "cifar10_deblur_resnet.sample_b512"
 CELLS = (TRAIN, SAMPLE)
 
 

@@ -102,9 +102,15 @@ def test_control_roundings():
 
 
 def test_reference_loads_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); import benchmark.reference; "
+    """Neither the reference nor each configuration's family, resolved and
+    built, loads the port or the JAX stack."""
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import benchmark.reference\n"
+            "for f in sys.argv[2:]:\n"
+            "    with torch.device('meta'): benchmark.reference.models.build(json.load(open(f)))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
-    out = subprocess.run([sys.executable, "-c", code, str(common.ROOT)], capture_output=True,
-                         text=True, check=True).stdout
+    configs = sorted(str(f) for f in (common.BENCH / "configs").glob("*.json"))
+    assert configs
+    out = subprocess.run([sys.executable, "-c", code, str(common.ROOT), *configs],
+                         capture_output=True, text=True, check=True).stdout
     loaded = set(eval(out))
     assert not loaded & {"colddiff_torch", "colddiff", "jax", "jaxlib", "flax"}

@@ -232,6 +232,13 @@ checks it, in phases:
      B=128 with the plain chain (the path before the kernel) and with the
      kernel, a Trainer a turn (plain, kernel, kernel, plain).
 
+ 33. the GroupNorm-swish kernel with a per-image [B, C] affine (ADM's
+     AdaGN, ``models/unet_adm.py``) at (8, 256, 256 px), ADM's widest
+     256 px shape at B=8, in bf16: against the plain version, two runs
+     bitwise equal, each image bitwise equal to a [C] call with its own
+     gamma and beta, one launch a call, its form, and its device time beside
+     its bound and the [C] call's.
+
 Device times come from CUDA events around a run of launches that a spin
 kernel holds back until the host has queued them all, so the card runs
 them back to back: the events time the card, not the Python and ctypes
@@ -364,6 +371,7 @@ REC_JAX = {"train_loss_parity": "train_bf16_parity.json",
 GN_BATCH, GN_STREAM_BATCH, GN_TRAIN_BATCH = 256, 16, 128
 GN_STREAM_SHAPES = ((256, 64), (128, 128))
 GN_TRAIN_STEPS = 20  # timed steps a turn, after 3 warm-up steps
+ADA_GN_SHAPE = (8, 256, 256)  # phase 33: (B, C, H) of ADM's 256 px AdaGN calls in its train cell
 GN_FP32_TOL = 1e-5  # the statistics' summation order only
 GN_BF16_TOL = 2.0 ** -6  # a normalized value on the other bf16 neighbour, carried
 GN_BF16_MISMATCH = 0.01  # through the rounded product and sum; rarely
@@ -2536,6 +2544,50 @@ def group_norm_kernel(device, card: str):
                 train_step_ms=train, phase_seconds=seconds)
 
 
+def ada_group_norm_row(device, card: str) -> dict:
+    """Phase 33: the GroupNorm-swish kernel with a per-image [B, C] affine at
+    ADA_GN_SHAPE in bf16 (see the module docstring).  Returns the row."""
+    b, c, h = ADA_GN_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    x = (torch.randn(b, c, h, h, generator=gen, device=device) * 2 + 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    gamma = (torch.rand(b, c, generator=gen, device=device) + 0.5).to(torch.bfloat16)
+    beta = (torch.randn(b, c, generator=gen, device=device) * 0.1).to(torch.bfloat16)
+    args = (x, gamma, beta, 32, 1e-5, True)
+    before = gn_ops.group_norm_swish.launches
+    got = gn_ops.group_norm_swish(*args)
+    torch.cuda.synchronize()
+    if gn_ops.group_norm_swish.launches != before + 1:
+        raise AssertionError("a per-image affine call launched "
+                             f"{gn_ops.group_norm_swish.launches - before} kernels, not 1")
+    if not torch.equal(got, gn_ops.group_norm_swish(*args)):
+        raise AssertionError("per-image affine: two runs differ")
+    for i in range(b):
+        one = gn_ops.group_norm_swish(x[i:i + 1], gamma[i], beta[i], 32, 1e-5, True)
+        if not torch.equal(got[i:i + 1], one):
+            raise AssertionError(f"per-image affine: image {i} differs from its [C] call")
+    want = gn_ops.group_norm_swish_plain(*args)
+    err = (got.float() - want.float()).abs()
+    share = (got != want).float().mean().item()
+    if not (bool((err <= GN_BF16_TOL + GN_BF16_TOL * want.float().abs()).all())
+            and share <= GN_BF16_MISMATCH):
+        raise AssertionError(f"per-image affine: max err {err.max().item()}, elements not "
+                             f"equal {share}")
+    row = dict(shape=[b, c, h, h], form=gn_ops.kernel_form(h * h, c, torch.bfloat16),
+               max_abs_err=err.max().item(), not_equal=share)
+    bound_ms, row["bound_by"] = bound(2 * x.nbytes + gamma.nbytes + beta.nbytes, 0)
+    row["bound_us"] = 1e3 * bound_ms
+    timed_row(row, "ms", lambda: gn_ops.group_norm_swish(*args))
+    timed_row(row, "shared_affine_ms",
+              lambda: gn_ops.group_norm_swish(x, gamma[0], beta[0], 32, 1e-5, True))
+    row["bound_share"] = bound_ms / row["ms"]
+    log(f"[33] per-image affine {row['shape']} bf16: {row['ms'] * 1e3:.3f} us, bound "
+        f"{row['bound_us']:.3f} us ({100 * row['bound_share']:.2f}%), [C] affine "
+        f"{row['shared_affine_ms'] * 1e3:.3f} us; form {row['form']}, max err "
+        f"{row['max_abs_err']:.3e}, not equal {share:.2e}; card: {card}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2781,6 +2833,9 @@ def main() -> int:
     reset_peak(dev)
     gn_row = group_norm_kernel(dev, card)
     log("[32] " + json.dumps(gn_row, default=float))
+
+    # 33. the GroupNorm-swish kernel with a per-image affine (ADM's AdaGN)
+    log("[33] " + json.dumps(ada_group_norm_row(dev, card), default=float))
 
     def front_entry(name, kernel, row, launched, train_launched, max_abs_err):
         """The kernels-line entry of one front kernel at ``row``'s shape, bf16

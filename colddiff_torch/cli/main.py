@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--sample_steps", type=int, default=None,
                         help="reverse-sample from this level (default: T)")
         sp.add_argument("--model", default="UnetConvNext",
-                        choices=["UnetConvNext", "UnetResNet"])
+                        choices=["UnetConvNext", "UnetResNet", "UnetADM"])
         sp.add_argument("--dim", type=int, default=64)
         sp.add_argument("--remove_time_embed", action="store_true")
         sp.add_argument("--residual", action="store_true")

@@ -5,6 +5,10 @@
 //   y   = round(round(xn * gamma) + beta)
 //   out = swish ? round(y / (1 + exp(-y))) : y      in fp32
 //
+// gamma and beta are [C], shared by the batch, or [B, C], an affine of each
+// image's own (ADM's AdaGN, whose per-image scale and shift the caller
+// folds into them): the kernel reads image b's at b * gb_stride (0 or C).
+//
 // round() is to the tensor's dtype (fp32 or bf16), at the rounding points
 // of colddiff_torch/ops/group_norm.py's plain version: F.group_norm on an
 // fp32 copy (whose CUDA kernel forms xn with that fma), the cast back, then
@@ -150,6 +154,7 @@ struct Args {
   const void *x, *gamma, *beta;
   void* out;
   int HW, C, G;
+  int gb_stride;  // elements from one image's gamma and beta to the next: 0 or C
   int k;      // blocks an image: a cluster when > 1
   int slice;  // pixels a block owns (the last block's slice may be short)
   int swish;
@@ -171,7 +176,9 @@ __global__ void __launch_bounds__(kThreads) group_norm_swish_kernel(const Args a
   float* fin = run + 3 * G;                        // [2][G] the image's mean, rstd
 
   const int rank = a.k > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int64_t base = (int64_t)(blockIdx.x / a.k) * a.HW * C + v * U;
+  const int image = blockIdx.x / a.k;
+  const int64_t base = (int64_t)image * a.HW * C + v * U;
+  const int64_t affine = (int64_t)image * a.gb_stride + v * U;  // this image's gamma, beta
   const T* x = static_cast<const T*>(a.x) + base;
   T* out = static_cast<T*>(a.out) + base;
   const int s0 = rank * a.slice, s1 = min(a.HW, s0 + a.slice);
@@ -279,15 +286,16 @@ __global__ void __launch_bounds__(kThreads) group_norm_swish_kernel(const Args a
   uint32_t gw[4], bw[4];  // bf16: gamma and beta as bf16 pairs
   float ga[U], be[U];     // fp32: gamma and beta
   if constexpr (BF16) {
-    const uint32_t* g32 = static_cast<const uint32_t*>(a.gamma) + v * U / 2;
-    const uint32_t* b32 = static_cast<const uint32_t*>(a.beta) + v * U / 2;
+    // affine is even (C and U are), so the pairs stay 4-byte aligned
+    const uint32_t* g32 = static_cast<const uint32_t*>(a.gamma) + affine / 2;
+    const uint32_t* b32 = static_cast<const uint32_t*>(a.beta) + affine / 2;
 #pragma unroll
     for (int i = 0; i < 4; ++i) gw[i] = g32[i], bw[i] = b32[i];
   } else {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      ga[u] = static_cast<const float*>(a.gamma)[v * U + u];
-      be[u] = static_cast<const float*>(a.beta)[v * U + u];
+      ga[u] = static_cast<const float*>(a.gamma)[affine + u];
+      be[u] = static_cast<const float*>(a.beta)[affine + u];
     }
   }
   // the last chunk is still in the registers; a streaming block reads its
@@ -423,17 +431,18 @@ cudaError_t launch(const Args& a, int B, const Config& cfg, cudaStream_t stream)
 
 // C entry point, bound with ctypes by colddiff_torch/ops/group_norm.py.
 // x, out: [B, HW, C] (channels_last memory), 16-byte aligned; gamma, beta:
-// [C]; all in dtype (0 = float32, 1 = bfloat16).  G groups of C / G
-// channels; swish != 0 applies swish.  Returns the cudaError_t of the launch
-// (0 = launched); cudaErrorInvalidValue for a shape the kernel does not take.
+// [C] (per_image 0) or [B, C] (per_image != 0), contiguous; all in dtype (0 =
+// float32, 1 = bfloat16).  G groups of C / G channels; swish != 0 applies
+// swish.  Returns the cudaError_t of the launch (0 = launched);
+// cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int colddiff_group_norm_swish(const void* x, const void* gamma, const void* beta,
                                          void* out, int B, int HW, int C, int G, float eps,
-                                         int swish, int dtype, void* stream) {
+                                         int swish, int per_image, int dtype, void* stream) {
   Config cfg;
   if (B <= 0 || G <= 0 || C % G != 0 || dtype < 0 || dtype > 1 ||
       !configure(HW, C, dtype == 0 ? 4 : 2, cfg) || (int64_t)B * cfg.k > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, gamma, beta, out, HW, C, G, cfg.k, cfg.slice, swish, eps};
+  const Args a{x, gamma, beta, out, HW, C, G, per_image ? C : 0, cfg.k, cfg.slice, swish, eps};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? launch<float>(a, B, cfg, s) : launch<__nv_bfloat16>(a, B, cfg, s));
 }

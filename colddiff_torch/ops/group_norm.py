@@ -5,7 +5,10 @@
 with the statistics in fp32 and ``GN(x)`` rounded to ``x``'s dtype before the
 affine (the JAX package's order, ``colddiff/models/layers.py``
 ``group_norm_swish``; ``F.group_norm``'s own affine would run before the
-cast).  ``eps`` is added to the biased variance.
+cast).  ``eps`` is added to the biased variance.  ``gamma`` and ``beta`` are
+[C], shared by the batch, or [B, C], an affine of each image's own: ADM's
+AdaGN (``models/unet_adm.py``) folds its per-image scale and shift into them.
+A [C] call launches the kernel as a [B, C] one does, with a batch stride of 0.
 
 On a CUDA tensor the call launches the hand-written Hopper kernel of
 ``colddiff_torch/csrc/group_norm_swish.cu``, which replaces no TPU kernel
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from .. import tracing
 from ..parallel import spatial
 from . import _build
 
@@ -58,15 +62,21 @@ def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+def _per_pixel(t: torch.Tensor) -> torch.Tensor:
+    """A [C] or [B, C] gamma or beta, broadcast over [B, C, H, W]."""
+    return t[..., None, None]
+
+
 def _affine_swish(xn, gamma, beta, swish: bool):
-    xn = xn * gamma.view(1, -1, 1, 1) + beta.view(1, -1, 1, 1)
+    xn = xn * _per_pixel(gamma) + _per_pixel(beta)
     return F.silu(xn) if swish else xn
 
 
 def group_norm_swish_plain(x, gamma, beta, num_groups: int, eps: float = 1e-6,
                            swish: bool = True):
     """The plain PyTorch version: ``F.group_norm`` on a copy in at least
-    fp32, cast back to ``x``'s dtype, then ``* gamma + beta`` and swish."""
+    fp32, cast back to ``x``'s dtype, then ``* gamma + beta`` ([C] or
+    [B, C]) and swish."""
     xn = F.group_norm(x.to(_stat_dtype(x)), num_groups, eps=eps).to(x.dtype)
     return _affine_swish(xn, gamma, beta, swish)
 
@@ -83,7 +93,7 @@ def _row_sharded(x, gamma, beta, num_groups: int, eps: float, swish: bool):
 def _kernel():
     fn = _build.load_library().colddiff_group_norm_swish
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,14 +137,16 @@ def _check(x_kind, shape, channels_last: bool, dtype, device, vectors,
                          f"{per_vector * MAX_VECTORS} in {dtype} (16-byte vectors of "
                          f"channels), got {c}")
     for name, _, t_shape, t_dtype, t_device in vectors:
-        if tuple(t_shape) != (c,):
+        if tuple(t_shape) not in ((c,), (shape[0], c)):
             raise ValueError(f"group_norm_swish: {name} has shape {tuple(t_shape)}, "
-                             f"kernel takes ({c},)")
+                             f"kernel takes ({c},) or ({shape[0]}, {c})")
         if t_device != device:
             raise ValueError(f"group_norm_swish: {name} is on {t_device}, x on {device}")
         if torch.promote_types(t_dtype, dtype) != dtype:
             raise TypeError(f"group_norm_swish: {name} is {t_dtype}, wider than x's "
                             f"{dtype}: the kernel computes the affine in x's dtype")
+    if len({len(v[2]) for v in vectors}) != 1:
+        raise ValueError("group_norm_swish: gamma and beta must both be [C] or both [B, C]")
     if not channels_last:
         raise ValueError("group_norm_swish kernel needs x in torch.channels_last memory")
 
@@ -165,7 +177,8 @@ def _launch(x, gamma, beta, num_groups: int, eps: float, swish: bool) -> torch.T
           else torch.cuda.device(index)):
         err = _kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
                         bsz, hgt * wid, c, num_groups, float(eps), int(swish),
-                        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(index).cuda_stream)
+                        int(gamma.dim() == 2), _DTYPE_CODE[x.dtype],
+                        torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"group_norm_swish kernel launch failed: cudaError {err}")
     group_norm_swish.launches += 1
@@ -196,7 +209,9 @@ class _GroupNormSwish(torch.autograd.Function):
     autograd runs for its backward, called directly, so the gradients are
     autograd's through :func:`group_norm_swish_plain`.  Not a second
     autograd graph, as ``_Front``'s backward builds: on the H100 that made
-    a host-paced ResNet train step (B=128 bf16) ~9% slower (``PERF.md``)."""
+    a host-paced ResNet train step (B=128 bf16) ~9% slower (``PERF.md``).
+    The backward runs inside the ``unet.group_norm.backward`` span, on the
+    autograd engine's thread."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps, swish):
@@ -206,40 +221,49 @@ class _GroupNormSwish(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, gamma, beta = ctx.saved_tensors
-        num_groups, eps, swish = ctx.args
-        need_x, need_gamma, need_beta = ctx.needs_input_grad[:3]
-        aten = torch.ops.aten
-        n, c, hw = x.shape[0], x.shape[1], x[0, 0].numel()
-        xf = x.to(_stat_dtype(x))
-        big_x = xf.contiguous() if x.is_cuda else xf  # what F.group_norm hands native_group_norm
-        yg, mean, rstd = aten.native_group_norm(big_x, None, None, n, c, hw, num_groups, eps)
-        xn = yg.to(x.dtype)
-        a, b = gamma.view(1, -1, 1, 1), beta.view(1, -1, 1, 1)
-        if swish:
-            y = xn * a + b
-            dy = aten.silu_backward(_match_layout(g, y), y)
-        else:
-            dy = _match_layout(g, xn)
-        dgamma = (dy * xn).sum((0, 2, 3), keepdim=True).view(c) if need_gamma else None
-        dbeta = dy.sum((0, 2, 3), keepdim=True).view(c) if need_beta else None
-        dx = None
-        if need_x:
-            dyg = (dy * a).to(yg.dtype)
-            # autograd's formula: the gradient in the input's memory format
-            # on the CPU, contiguous on the card
-            fmt = (torch.channels_last if not x.is_cuda and not big_x.is_contiguous()
-                   else torch.contiguous_format)
-            dx = aten.native_group_norm_backward(dyg.contiguous(memory_format=fmt), big_x, mean,
-                                                 rstd, None, n, c, hw, num_groups,
-                                                 [True, False, False])[0].to(x.dtype)
-        return dx, dgamma, dbeta, None, None, None
+        with tracing.span("unet.group_norm.backward"):
+            return (*_recompute_backward(ctx, g), None, None, None)
+
+
+def _recompute_backward(ctx, g):
+    """(dx, dgamma, dbeta) of :class:`_GroupNormSwish`, each None where not needed."""
+    x, gamma, beta = ctx.saved_tensors
+    num_groups, eps, swish = ctx.args
+    need_x, need_gamma, need_beta = ctx.needs_input_grad[:3]
+    aten = torch.ops.aten
+    n, c, hw = x.shape[0], x.shape[1], x[0, 0].numel()
+    xf = x.to(_stat_dtype(x))
+    big_x = xf.contiguous() if x.is_cuda else xf  # what F.group_norm hands native_group_norm
+    yg, mean, rstd = aten.native_group_norm(big_x, None, None, n, c, hw, num_groups, eps)
+    xn = yg.to(x.dtype)
+    a, b = _per_pixel(gamma), _per_pixel(beta)
+    if swish:
+        y = xn * a + b
+        dy = aten.silu_backward(_match_layout(g, y), y)
+    else:
+        dy = _match_layout(g, xn)
+    # a [C] affine sums over the batch too, a [B, C] one over the pixels alone
+    dims = (0, 2, 3) if gamma.dim() == 1 else (2, 3)
+    dgamma = (dy * xn).sum(dims, keepdim=True).view(gamma.shape) if need_gamma else None
+    dbeta = dy.sum(dims, keepdim=True).view(beta.shape) if need_beta else None
+    dx = None
+    if need_x:
+        dyg = (dy * a).to(yg.dtype)
+        # autograd's formula: the gradient in the input's memory format
+        # on the CPU, contiguous on the card
+        fmt = (torch.channels_last if not x.is_cuda and not big_x.is_contiguous()
+               else torch.contiguous_format)
+        dx = aten.native_group_norm_backward(dyg.contiguous(memory_format=fmt), big_x, mean,
+                                             rstd, None, n, c, hw, num_groups,
+                                             [True, False, False])[0].to(x.dtype)
+    return dx, dgamma, dbeta
 
 
 def group_norm_swish(x, gamma, beta, num_groups: int, eps: float = 1e-6,
                      swish: bool = True) -> torch.Tensor:
     """GroupNorm of [B, C, H, W] ``x`` with ``num_groups`` groups, ``* gamma +
-    beta`` ([C]) and optional swish; see the module docstring.
+    beta`` ([C], or [B, C]: each image's own) and optional swish; see the
+    module docstring.
 
     ``group_norm_swish.launches`` counts the kernel's launches (CPU calls do
     not count); ``group_norm_swish.row_sharded_calls`` the calls inside a

@@ -28,7 +28,8 @@ keep one order, which is also the order of their launches):
 The spans (PERF.md section 3 names the metric that reads each):
 ``train.loader``, ``loader.queue``, ``train.forward``, ``train.backward``,
 ``train.optimizer``, ``convnext_front.backward``, ``sample.degrade``,
-``unet.group_norm``.
+``unet.group_norm``, ``unet.ada_group_norm``, ``unet.attention``,
+``unet.group_norm.backward``.
 """
 
 from __future__ import annotations

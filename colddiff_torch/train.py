@@ -96,7 +96,6 @@ import time
 from pathlib import Path
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
@@ -332,10 +331,14 @@ class Trainer:
         training loader by default)."""
         dl = self.dl if dl is None else dl
         with span("train.loader"):
-            xs = torch.from_numpy(np.stack([next(dl) for _ in range(self.accum)]))
-            if self.device.type == "cuda":
-                xs = xs.pin_memory().to(self.device, non_blocking=True)
-            return self._to_model_space(xs.to(self.device))
+            # stacked straight into pinned host memory: one host copy
+            first = torch.from_numpy(next(dl))
+            xs = torch.empty((self.accum, *first.shape), dtype=first.dtype,
+                             pin_memory=self.device.type == "cuda")
+            xs[0] = first
+            for i in range(1, self.accum):
+                xs[i] = torch.from_numpy(next(dl))
+            return self._to_model_space(xs.to(self.device, non_blocking=True))
 
     def _maybe_reset_op(self) -> None:
         """Redraw the state of operators with ``random_snow`` before each step

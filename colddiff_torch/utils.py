@@ -43,16 +43,44 @@ def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor],
     torch._foreach_add_(ema, torch._foreach_mul(new, 1.0 - decay))
 
 
+class _BF16Copies(torch.autograd.Function):
+    """bf16 copies of floating tensors as one autograd node: one foreach copy
+    forward, and one back into each tensor's own dtype.  Per tensor, a
+    ``.to`` would cost a node and a launch each way, and the host's share
+    of a step grows with the parameter count (566 tensors in ADM)."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.dtypes = [t.dtype for t in tensors]
+        out = [torch.empty_like(t, dtype=torch.bfloat16) for t in tensors]
+        torch._foreach_copy_(out, list(tensors))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        got = [i for i, g in enumerate(grads) if g is not None]
+        out = [None] * len(grads)
+        for i in got:
+            out[i] = torch.empty_like(grads[i], dtype=ctx.dtypes[i])
+        if got:
+            torch._foreach_copy_([out[i] for i in got], [grads[i] for i in got])
+        return tuple(out)
+
+
 def bf16_params(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """``{name: p.to(bfloat16)}`` for the floating tensors of ``named_params``.
 
     The caller keeps the fp32 masters; the cast is differentiable, so the
-    gradients of a forward run on the copies land on the masters.  Integer
-    tensors are left out (``functional_call`` then uses the module's own).
-    This is the JAX package's bf16 recipe: cast the parameters and the
-    input, not per-op autocast."""
-    return {name: p.to(torch.bfloat16) for name, p in named_params
-            if p.is_floating_point()}
+    gradients of a forward run on the copies land on the masters (all at
+    once, when the backward has reached every copy: :class:`_BF16Copies`).
+    Integer tensors are left out (``functional_call`` then uses the
+    module's own).  This is the JAX package's bf16 recipe: cast the
+    parameters and the input, not per-op autocast."""
+    named = [(name, p) for name, p in named_params if p.is_floating_point()]
+    if not named:
+        return {}
+    return dict(zip((name for name, _ in named), _BF16Copies.apply(*(p for _, p in named))))
 
 
 def apply_in_chunks(fn, chunk_size: int, *args: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The port's command line == colddiff's, and the port's CLI end to end.
 
 - The parsers: the same option strings, dests, defaults, types, choices
-  and actions for ``train`` and ``test``, plus ``--device`` alone.
+  and actions for ``train`` and ``test``, plus ``--device`` alone and the
+  ``UnetADM`` choice of ``--model``.
 - The ``--test_type`` table: read from ``colddiff/cli/main.py`` with ``ast``
   (no JAX Trainer is built), every name the JAX ``run_test`` accepts and the
   harness method it calls; the port's ``dispatch`` calls that method.
@@ -89,6 +90,9 @@ def test_parser_equals_jax_plus_device(command):
     got = _options(pcli.build_parser(), command)
     assert set(got) - set(want) == {"device"} and set(want) <= set(got)
     for dest, spec in want.items():
+        if dest == "model":  # the port adds guided-diffusion's ADM, which JAX lacks
+            assert got[dest][3] == [*spec[3], "UnetADM"]
+            spec = (*spec[:3], got[dest][3], *spec[4:])
         assert got[dest] == spec, dest
     assert got["device"][:2] == (("--device",), "cuda")
     args = pcli.build_parser().parse_args([command, "--bs", "3", "--resolution", "8",

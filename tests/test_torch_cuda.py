@@ -735,6 +735,73 @@ def test_group_norm_bf16_swish_rounds_as_f_silu(cuda):
                        torch.nn.functional.silu(y))
 
 
+# ADM's shapes at B=2: its widest 256 px calls (the second in the streaming
+# form) and its widest, the 2,048 channels of a concatenation at 8 px
+ADA_GN_SHAPES = [(256, 256), (512, 256), (2048, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swish", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", ADA_GN_SHAPES)
+def test_group_norm_kernel_per_image_affine_matches_plain(cuda, c, h, dtype, swish):
+    """A [B, C] gamma and beta (ADM's AdaGN): one launch, the plain version's
+    values, two runs bitwise equal, and each image bitwise what a [C] call
+    with its own gamma and beta gives, which launches the same form."""
+    gen = torch.Generator(device=cuda).manual_seed(c + h)
+    x, _, _ = _gn_args(gen, 2, c, h, dtype, cuda)
+    gamma = (torch.rand(2, c, generator=gen, device=cuda) + 0.5).to(dtype)
+    beta = (torch.randn(2, c, generator=gen, device=cuda) * 0.1).to(dtype)
+    before = gn_mod.group_norm_swish.launches
+    got = gn_mod.group_norm_swish(x, gamma, beta, 32, 1e-5, swish)
+    torch.cuda.synchronize()
+    assert gn_mod.group_norm_swish.launches == before + 1
+    if (c, h) == (512, 256):
+        assert gn_mod.kernel_form(h * h, c, dtype)["chunks"] > 1
+    _check_gn(got, gn_mod.group_norm_swish_plain(x, gamma, beta, 32, 1e-5, swish))
+    assert torch.equal(got, gn_mod.group_norm_swish(x, gamma, beta, 32, 1e-5, swish))
+    for i in range(2):
+        one = gn_mod.group_norm_swish(x[i:i + 1], gamma[i], beta[i], 32, 1e-5, swish)
+        assert torch.equal(got[i:i + 1], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_per_image_affine_gradients_equal_plain_autograd(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, _, _ = _gn_args(gen, 3, 128, 16, dtype, cuda)
+    args = (x, (torch.rand(3, 128, generator=gen, device=cuda) + 0.5).to(dtype),
+            (torch.randn(3, 128, generator=gen, device=cuda) * 0.1).to(dtype))
+    w = torch.randn(3, 128, 16, 16, generator=gen, device=cuda).to(dtype)
+    grads = []
+    for fn in (gn_mod.group_norm_swish, gn_mod.group_norm_swish_plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        (fn(*leaves, 32, 1e-5, True).float() * w).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_adm_forward_launches_its_group_norms_on_the_card(cuda):
+    """A tiny ADM in bf16: one kernel launch a GroupNorm call, AdaGN's too,
+    and its output against the fp32 model on the card."""
+    from colddiff_torch.models import UnetADM
+
+    model = UnetADM(32, 3, 64, 3, 1, (16,), (1, 2), 32,
+                    generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(2, 32, 32, 3, device=cuda) * 2 - 1
+    t = torch.tensor([3, 150], device=cuda)
+    before = gn_mod.group_norm_swish.launches
+    with torch.inference_mode():
+        want = model(x, t)
+        got = model.to(torch.bfloat16)(x.to(torch.bfloat16), t).float()
+    res_blocks = sum(type(m).__name__ == "ResBlock" for m in model.modules())
+    attention = sum(type(m).__name__ == "AttentionBlock" for m in model.modules())
+    assert gn_mod.group_norm_swish.launches - before == 2 * (2 * res_blocks + attention + 1)
+    assert (got - want).norm() <= 0.05 * want.norm()
+
+
 @pytest.mark.cuda
 def test_cifar_resnet_forward_launches_51_group_norms(cuda):
     from colddiff_torch.models import get_model

@@ -361,3 +361,24 @@ def test_bf16_params_casts_floating_tensors_only():
     assert list(out) == ["w"] and out["w"].dtype == torch.bfloat16
     out["w"].sum().backward()  # the cast is differentiable
     assert named[0][1].grad is not None
+
+
+def test_bf16_params_gradients_equal_per_tensor_casts():
+    """The one-node cast gives each master the gradient that its own
+    ``.to(bfloat16)`` gives, in the master's dtype, and none to a copy the
+    forward left unused."""
+    g = torch.Generator().manual_seed(0)
+    masters = [torch.randn(s, generator=g, requires_grad=True) for s in ((3, 4), (4,), (2,))]
+    x = torch.randn(5, 3, generator=g).to(torch.bfloat16)
+
+    def loss(w, b):
+        return ((x @ w + b).float() ** 2).sum()
+
+    out = utils.bf16_params([("w", masters[0]), ("b", masters[1]), ("unused", masters[2])])
+    loss(out["w"], out["b"]).backward()
+    want = [m.detach().clone().requires_grad_() for m in masters[:2]]
+    loss(*(m.to(torch.bfloat16) for m in want)).backward()
+    for got, ref in zip(masters, want):
+        assert got.grad.dtype == torch.float32
+        torch.testing.assert_close(got.grad, ref.grad, rtol=0, atol=0)
+    assert masters[2].grad is None
